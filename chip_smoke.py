@@ -6,19 +6,30 @@
 
 Phases (any failure exits non-zero before the last line is printed):
   1. require a CUDA device and print the card's name and power limit;
-  2. build the CUDA kernels from damar_tpu_torch/csrc (nvcc, sm_90a);
+  2. build the CUDA kernels from damar_tpu_torch/csrc (nvcc, sm_90a, one
+     process per source), print ptxas's registers and spills, and count
+     each kernel's instructions per DP row in its built code (see
+     `sass_ops_per_row`);
   3. hold K1/K2/K3 against their plain torch versions on fuzz batches on
-     the card (exact equality: integer outputs);
+     the card (exact equality: integer outputs), among them one K1
+     launch of units from 1 to ~20,000 rows, odd unit counts, windows
+     past both pool edges, and K2 starts off word boundaries and a
+     bucket at its segment cap;
   4. run the main path, overlap_block_pair on the large-50Mbp unit (2.5
      Mbp genome, 20x, mean 6 kb, 14% error, seeds 2024/2025, one block
      self-compared): a cold pass, which also builds what the block
      caches keep (uploads, the A-side index, the reverse-complement
      block, the trace pool), then --passes warm passes that reuse them,
      each with every launch counter reset just before it; check_las
-     must be clean.  --profile PATH adds one warm pass under
-     torch.profiler and writes its tables to PATH;
+     must be clean.  Then one more warm pass under torch.profiler, with
+     a spy that keeps every kernel launch's arguments and outputs: the
+     profiler gives each kernel's device time, the work the launches did
+     gives its bound (see `bound`); --profile PATH writes that pass's
+     tables to PATH;
   5. hold each kernel against its plain version on the arguments of its
-     first main-path launch, and time both with CUDA events;
+     first main-path launch (capped at CAP work items), and time both:
+     the kernel by its device time under the profiler, the plain
+     version with CUDA events;
   6. a small self pair and a distinct pair (emit_mirrors on) on the card
      must give the same .las columns as the CPU path (the plain versions,
      which the CPU tests hold byte-equal to damar_tpu);
@@ -27,6 +38,7 @@ line.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,11 +52,31 @@ from damar_tpu_torch.core.config import OverlapConfig
 from damar_tpu_torch.formats.las import check_las
 from damar_tpu_torch.ops import _cuda, wave_bp, wave_wide
 from damar_tpu_torch.ops.words import pack_bases
-from damar_tpu_torch.pipeline.overlap import overlap_block_pair
-from damar_tpu_torch.utils.sim import make_genome, sample_reads, unit_batch
+from damar_tpu_torch.pipeline import overlap as ov
+from damar_tpu_torch.utils.sim import (edge_units, make_genome,
+                                       sample_reads, unit_batch)
 
 GENOME, COVERAGE, MEAN_LEN, ERR, SEED = 2_500_000, 20.0, 6_000, 0.14, 2024
 HIT_CAP, SEED_CAP = 1 << 27, 1 << 21
+CAP = 16_384          # work items of a first launch held against plain
+
+# Bounds: the least time the card could take for a launch's work, the
+# larger of its int32 operations over the INT32 rate (132 SMs x 64 lanes
+# x 1.98 GHz boost, Hopper white paper) and its bytes (each input read
+# once, each output written once) over the HBM rate (3.35 TB/s, H100
+# SXM data sheet).  Operations per DP row (K3: per lane-row): the
+# smaller of the built kernel's count (`sass_ops_per_row`) and an
+# estimate of what a row needs with sm_90's three-input instructions
+# (LOP3, IADD3, funnel shifts): ~60 for K1, ~50 for K2; K3's 45 is its
+# plain version's row algebra.  Chunk tails and commits are left out.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
+OPS_ESTIMATE = {"bp_extend_kernel": 60, "bp_trace_kernel": 50,
+                "dp_rows_kernel": 45}
+# global loads per DP row in a kernel's row loop: K1 and K2 load one word
+# of A and one of B per 16 rows, K3 one char of A and one of B per row
+LOADS_PER_ROW = {"bp_extend_kernel": 1 / 8, "bp_trace_kernel": 1 / 8,
+                 "dp_rows_kernel": 2}
 
 # kernel name -> (wrapper whose `launches` counts it, module, launch fn,
 # plain torch version with the same contract, source, replaced TPU kernel)
@@ -86,27 +118,47 @@ def fuzz_checks(dev) -> dict:
     """Phase 3: each kernel vs its plain version on fuzz batches."""
     errs = {k: 0 for k in KERNELS}
     rng = np.random.default_rng(7)
-    A, B, ao, bo, alim, blim, rv = unit_batch(rng, 3000)
     T = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    aw, bw = pack_bases(T(A)), pack_bases(T(B))
+
+    def ext(batch, max_rows, rv=None):
+        A, B, ao, bo, alim, blim, rev = batch
+        args = (pack_bases(T(A)), pack_bases(T(B)), T(ao), T(bo), T(alim),
+                T(blim), T(rev) if rv is None else rv, 128, max_rows, 5, 60)
+        e = max_abs_err(wave_bp.extend_bp_kernel(*args),
+                        wave_bp.extend_bp_plain(*args))
+        errs["bp_extend_kernel"] = max(errs["bp_extend_kernel"], e)
+
+    batch = unit_batch(rng, 3000)
     for max_rows in (65536, 128):
         for dirs in ("mixed", "fwd", "rev"):
-            r = T(rv) if dirs == "mixed" else torch.full(
-                (len(rv),), dirs == "rev", dtype=torch.bool, device=dev)
-            args = (aw, bw, T(ao), T(bo), T(alim), T(blim), r, 128,
-                    max_rows, 5, 60)
-            e = max_abs_err(wave_bp.extend_bp_kernel(*args),
-                            wave_bp.extend_bp_plain(*args))
-            errs["bp_extend_kernel"] = max(errs["bp_extend_kernel"], e)
-    ta = np.minimum(alim, len(A) - ao).astype(np.int32)
-    tb = np.minimum(blim, len(B) - bo).astype(np.int32)
-    z = np.zeros(len(ao), np.int32)
-    for tspace, max_segs in ((100, 32), (126, 24)):
-        args = (aw, bw, T(z), T(z), T(ao), T(bo), T(ta), T(tb), tspace,
-                max_segs)
+            ext(batch, max_rows, rv=None if dirs == "mixed" else torch.full(
+                (3000,), dirs == "rev", dtype=torch.bool, device=dev))
+    # one launch of units from 1 to ~20,000 rows
+    ext(unit_batch(rng, 700, min_len=1, max_len=20_000), 65536)
+    for S in (1, 33, 1031):
+        ext(unit_batch(rng, S), 65536)
+    ext(edge_units(rng, 64), 65536)
+
+    def trace(S, tspace, max_segs, offsets, **kw):
+        A, B, ao, bo, alim, blim, _ = unit_batch(rng, S, **kw)
+        ta = np.minimum(alim, len(A) - ao).astype(np.int32)
+        tb = np.minimum(blim, len(B) - bo).astype(np.int32)
+        abp, bbp = ao, bo
+        if offsets:     # starts and offsets off word boundaries
+            abp = np.minimum(rng.integers(1, 90, S), ao).astype(np.int32)
+            bbp = np.minimum(rng.integers(1, 90, S), bo).astype(np.int32)
+        args = (pack_bases(T(A)), pack_bases(T(B)), T(ao - abp),
+                T(bo - bbp), T(abp), T(bbp), T(ta), T(tb), tspace, max_segs)
         e = max_abs_err(wave_bp.trace_bp_kernel(*args),
                         wave_bp.trace_bp_plain(*args))
         errs["bp_trace_kernel"] = max(errs["bp_trace_kernel"], e)
+
+    for tspace, max_segs in ((100, 32), (126, 24)):
+        trace(3000, tspace, max_segs, False)
+    for tspace, max_segs, S in ((100, 64, 517), (126, 48, 33),
+                                (250, 24, 1), (100, 6, 400)):
+        trace(S, tspace, max_segs, True, max_len=6000)
+
     W, S, R = 128, 4000, 100
     lane = np.arange(W)
     D = np.where(lane >= W // 2, lane - W // 2, 1 << 20)[None].repeat(S, 0)
@@ -131,12 +183,138 @@ def fuzz_checks(dev) -> dict:
     return errs
 
 
-class Capture:
-    """Records the arguments of each kernel's first launch while the
-    main path runs (the launch itself goes through unchanged)."""
+INSN = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
+
+
+def _row_loop(insns: list, labels: dict) -> tuple[int, int]:
+    """(instructions, global loads) of the smallest loop that holds a
+    global load: the row loop, whose body is straight-line code over
+    one or more 16-row groups (K1/K2) or rows (K3)."""
+    ends = {}
+    for addr, text in insns:
+        op = text.split()
+        op = op[1] if op[0].startswith("@") else op[0]
+        if op.startswith("BRA"):
+            m = TARGET.search(text)
+            if m is None:                      # no direct target
+                continue
+            tgt = labels[m.group(1)] if m.group(1) else int(m.group(2), 16)
+            if tgt <= addr:                    # backward: a loop
+                ends[tgt] = max(ends.get(tgt, addr), addr)
+    best = None
+    for lo, hi in ends.items():
+        body = [t for a, t in insns if lo <= a <= hi
+                and not t.split()[-1].startswith("NOP")]
+        n_ld = sum(1 for t in body
+                   if any(w.startswith("LDG") for w in t.split()[:2]))
+        if n_ld and (best is None or len(body) < best[0]):
+            best = (len(body), n_ld)
+    if best is None:
+        raise SystemExit("chip_smoke: no row loop found in the SASS")
+    return best
+
+
+def sass_ops_per_row(lib_path: Path) -> dict:
+    """Per kernel function (mangled name): SASS instructions per DP row
+    (K3: per lane-row) of its row loop, from `cuobjdump -sass`: the
+    loop's instructions over the rows it covers (its global loads over
+    LOADS_PER_ROW)."""
+    exe = Path(_cuda._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(exe), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs, cur, pending = {}, None, []
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), ([], {}))
+            continue
+        if cur is None:
+            continue
+        lab = LABEL.match(ln)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        ins = INSN.match(ln)
+        if ins:
+            addr = int(ins.group(1), 16)
+            cur[0].append((addr, ins.group(2).strip()))
+            for lb in pending:
+                cur[1][lb] = addr
+            pending = []
+    out = {}
+    for fn, (insns, labels) in funcs.items():
+        kern = next((k for k in KERNELS if k in fn), None)
+        if kern is None:
+            continue
+        n_insn, n_ld = _row_loop(insns, labels)
+        rows = n_ld / LOADS_PER_ROW[kern]
+        out[fn] = dict(kernel=kern, insns=n_insn, loads=n_ld, rows=rows,
+                       per_row=n_insn / rows)
+    missing = set(KERNELS) - {v["kernel"] for v in out.values()}
+    if missing:
+        raise SystemExit(f"chip_smoke: no SASS for {sorted(missing)}")
+    return out
+
+
+def ops_per_row(name: str, kw, sass: dict) -> float:
+    """Operations per DP row that the bound of this launch counts: the
+    smaller of the SASS count of the function it runs and the
+    estimate."""
+    tag = name
+    if name == "dp_rows_kernel":            # the template instance
+        tag += (f"ILb{int(kw.get('track_best', True))}"
+                f"ELb{int(kw.get('recenter', False))}E")
+    counts = [v["per_row"] for fn, v in sass.items() if tag in fn]
+    if len(counts) != 1:
+        raise SystemExit(f"chip_smoke: {len(counts)} SASS functions "
+                         f"match {tag}")
+    return min(counts[0], OPS_ESTIMATE[name])
+
+
+def work(name: str, a, kw, out, sass: dict,
+         full_rows: int | None = None) -> tuple[int, float, int]:
+    """(rows, int32 ops, bytes) of one launch.  K1: the rows its outputs
+    prove were needed, sum(bva); given full_rows (the full depth), a
+    launch to a smaller depth leaves out its active units, which a
+    later full-depth launch re-runs from row 0 and counts, so each unit
+    counts once per pass.  K2: sum(alim) of its extents; K3: the rows of
+    its live seeds times 128 lanes."""
+    nb = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                        for t in ts if torch.is_tensor(t))
+    if name == "bp_extend_kernel":
+        bva = out[1].to(torch.int64)
+        if full_rows is not None and a[8] < full_rows:
+            bva = torch.where(out[3] != 0, 0, bva)
+        rows = int(bva.sum())
+        byts = nb(a[2:7]) + nb(out)
+    elif name == "bp_trace_kernel":
+        rows = int(a[6].to(torch.int64).sum())
+        byts = nb(a[2:8]) + nb(out[1:]) + 8 * int(out[1].sum())
+    else:
+        R = kw["R"]
+        live = (a[7] != 0) & (a[6] > 0)
+        rows = 128 * int(torch.where(live, a[6].clamp(max=R), 0).sum())
+        byts = nb(a[:12]) + nb(out)
+    byts += rows // 2 if name != "dp_rows_kernel" else 0   # 2-bit chars
+    return rows, rows * ops_per_row(name, kw, sass), byts
+
+
+def bound(ops: int, byts: int) -> tuple[float, str]:
+    """(least ms, what bounds it) for the given work."""
+    t_ops, t_bytes = ops / INT32_OPS_PER_S, byts / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+class Spy:
+    """While the main path runs: keeps each kernel launch function's
+    arguments and outputs (the launches go through unchanged)."""
 
     def __init__(self):
-        self.args = {}
+        self.calls = {k: [] for k in KERNELS}
         self.orig = {}
 
     def __enter__(self):
@@ -145,8 +323,9 @@ class Capture:
             self.orig[name] = (mod, attr, fn)
 
             def spy(*a, _fn=fn, _name=name, **kw):
-                self.args.setdefault(_name, (a, kw))
-                return _fn(*a, **kw)
+                out = _fn(*a, **kw)
+                self.calls[_name].append((a, kw, out))
+                return out
             setattr(mod, attr, spy)
         return self
 
@@ -154,6 +333,58 @@ class Capture:
         for mod, attr, fn in self.orig.values():
             setattr(mod, attr, fn)
         return False
+
+    def summary(self, prof, sass: dict, full_rows: int) -> dict:
+        """Per kernel: launches, device ms (from the profile `prof` of
+        the spied pass), rows, bound ms and its kind, summed over the
+        pass."""
+        dev_ms, dev_n = device_ms(prof)
+        out = {}
+        for name, calls in self.calls.items():
+            if dev_n[name] != len(calls):
+                raise SystemExit(f"chip_smoke: {name}: {len(calls)} "
+                                 f"calls but {dev_n[name]} profiled "
+                                 "launches")
+            rows = ops = byts = 0
+            for a, kw, res in calls:
+                r, o, b = work(name, a, kw, res, sass, full_rows)
+                rows, ops, byts = rows + r, ops + o, byts + b
+            bms, by = bound(ops, byts)
+            out[name] = dict(launches=len(calls), pass_ms=dev_ms[name],
+                             rows=rows, pass_bound_ms=bms, bound_by=by)
+        return out
+
+
+def device_ms(prof) -> tuple[dict, dict]:
+    """Per kernel: its self device time (ms) and launch count in the
+    profile `prof`."""
+    from torch.autograd import DeviceType
+    ms, n = {k: 0.0 for k in KERNELS}, {k: 0 for k in KERNELS}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in KERNELS:
+            if k in e.key:
+                ms[k] += e.self_device_time_total / 1e3
+                n[k] += e.count
+    return ms, n
+
+
+def kernel_ms(name: str, fn, reps: int) -> float:
+    """Device time of one launch of kernel `name` by fn(), the mean of
+    `reps` launches under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms, n = device_ms(prof)
+    if n[name] != reps:
+        raise SystemExit(f"chip_smoke: {name}: {n[name]} profiled "
+                         f"launches of {reps}")
+    return ms[name] / reps
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -169,6 +400,19 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def capped(name: str, a, kw):
+    """The first CAP work items of a launch, as a launch of their own."""
+    if name == "bp_extend_kernel":
+        sel = wave_bp.longest_first(a[4], a[5])[:CAP]
+        return (*a[:2], *[x[sel] for x in a[2:7]], *a[7:]), dict(kw)
+    if name == "bp_trace_kernel":
+        return (*a[:2], *[x[:CAP] for x in a[2:8]], *a[8:]), dict(kw)
+    S = a[0].shape[0]
+    cut = lambda x: x[:CAP] if torch.is_tensor(x) and x.shape[0] == S \
+        else x  # noqa: E731
+    return tuple(cut(x) for x in a), {k: cut(v) for k, v in kw.items()}
+
+
 def same_las(x, y) -> bool:
     return (x.tspace == y.tspace
             and np.array_equal(x.columns.headers, y.columns.headers)
@@ -176,19 +420,11 @@ def same_las(x, y) -> bool:
             and np.array_equal(x.columns.offsets, y.columns.offsets))
 
 
-def profile_pass(blk, cfg, kw, path: str) -> None:
-    """One warm main-path pass under torch.profiler: prints the device
-    time, the busy share, the host's stream syncs and kernel launches;
-    writes the full tables to `path`."""
+def report_profile(prof, wall: float, path: str | None) -> None:
+    """Prints the profiled pass's device time, busy share, the host's
+    stream syncs and kernel launches; writes the full tables to `path`
+    when given."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        overlap_block_pair(blk, blk, cfg, **kw)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
     ka = prof.key_averages()
     # device-side events only (kernels, copies): a host op's device time
     # repeats that of the kernels it launched
@@ -196,7 +432,7 @@ def profile_pass(blk, cfg, kw, path: str) -> None:
     dev_s = sum(e.self_device_time_total for e in on_dev) / 1e6
     log(f"profiled pass: wall {wall:.4f} s (profiler on), device time "
         f"{dev_s:.4f} s, busy share {dev_s / wall:.3f}")
-    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:10]
     log("device time by name: " + ", ".join(
         f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms "
         f"({e.count})" for e in top))
@@ -205,13 +441,14 @@ def profile_pass(blk, cfg, kw, path: str) -> None:
         if e:
             log(f"{name}: {e[0].count} calls, "
                 f"{e[0].cpu_time_total / 1e3:.1f} ms host time")
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Path(path).write_text(
-        ka.table(sort_by="self_cuda_time_total", row_limit=30,
-                 max_name_column_width=60) + "\n"
-        + ka.table(sort_by="cpu_time_total", row_limit=25,
-                   max_name_column_width=60) + "\n")
-    log(f"profile tables: {path}")
+    if path:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(
+            ka.table(sort_by="self_cuda_time_total", row_limit=30,
+                     max_name_column_width=60) + "\n"
+            + ka.table(sort_by="cpu_time_total", row_limit=25,
+                       max_name_column_width=60) + "\n")
+        log(f"profile tables: {path}")
 
 
 def main(argv=None) -> int:
@@ -219,7 +456,7 @@ def main(argv=None) -> int:
     ap.add_argument("--passes", type=int, default=1,
                     help="warm main-path passes to time (default 1)")
     ap.add_argument("--profile", metavar="PATH",
-                    help="add one profiled warm pass; tables go to PATH")
+                    help="write the profiled warm pass's tables to PATH")
     args = ap.parse_args(argv)
     if args.passes < 1:
         ap.error("--passes must be at least 1")
@@ -241,6 +478,14 @@ def main(argv=None) -> int:
     _cuda.lib()
     log(f"build: {lib_path.name} in {time.time() - t0:.1f} s "
         f"(nvcc {_cuda.last_build_seconds or 0:.1f} s)")
+    for ln in _cuda.build_log:
+        log(f"  {ln}")
+    sass = sass_ops_per_row(lib_path)
+    for fn, v in sass.items():
+        log(f"SASS {fn[:60]}: row loop {v['insns']} instructions, "
+            f"{v['loads']} global loads = {v['rows']:g} rows, "
+            f"{v['per_row']:.2f} per row (estimate "
+            f"{OPS_ESTIMATE[v['kernel']]})")
 
     t0 = time.time()
     errs = fuzz_checks(dev)
@@ -264,8 +509,7 @@ def main(argv=None) -> int:
               emit_mirrors=False, device=dev)
     torch.cuda.synchronize()
     t0 = time.time()
-    with Capture() as cap:
-        las_a, _, stats = overlap_block_pair(blk, blk, cfg, **kw)
+    las_a, _, stats = ov.overlap_block_pair(blk, blk, cfg, **kw)
     torch.cuda.synchronize()
     wall = time.time() - t0
     aligned = int(las_a.a_spans().sum())
@@ -280,7 +524,7 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t0 = time.time()
-        las_a, _, stats = overlap_block_pair(blk, blk, cfg, **kw)
+        las_a, _, stats = ov.overlap_block_pair(blk, blk, cfg, **kw)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
         launches = {k: v[0].launches for k, v in KERNELS.items()}
@@ -310,30 +554,64 @@ def main(argv=None) -> int:
     med = float(np.median(walls))
     log(f"warm passes: walls {[round(w, 4) for w in walls]} s, median "
         f"{med:.4f} s = {aligned / med / 1e9:.4f} Gbp-aligned/s on {card}")
-    if args.profile:
-        profile_pass(blk, cfg, kw, args.profile)
+
+    # ---- one more warm pass, profiled, with every launch kept ----
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with Spy() as spy, profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        las_s, _, _ = ov.overlap_block_pair(blk, blk, cfg, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    report_profile(prof, wall, args.profile)
+    per = spy.summary(prof, sass, cfg.max_read_len)
+    if las_s.novl != las_a.novl:
+        raise SystemExit("chip_smoke: the spied pass gave other records")
+    for name, p in per.items():
+        log(f"{name} in one warm pass: {p['launches']} launches, "
+            f"{p['pass_ms']:.4f} ms device time, {p['rows']} rows, bound "
+            f"{p['pass_bound_ms']:.4f} ms ({p['bound_by']}), share of "
+            f"bound {p['pass_bound_ms'] / p['pass_ms']:.3f} on {card}")
+    k12 = sum(per[k]["pass_ms"] for k in ("bp_extend_kernel",
+                                          "bp_trace_kernel"))
+    log(f"K1 + K2 per warm pass: {k12:.4f} ms device time")
 
     # ---- each kernel vs plain at its first main-path launch, timed ----
     rows = []
     for name, (_, mod, attr, plain, src, replaces) in KERNELS.items():
-        if name not in cap.args:
-            raise SystemExit(f"chip_smoke: no captured launch of {name}")
-        a, k = cap.args[name]
+        if not spy.calls[name]:
+            raise SystemExit(f"chip_smoke: no spied launch of {name}")
+        a, k = capped(name, *spy.calls[name][0][:2])
         launch = getattr(mod, attr)
-        e = max_abs_err(launch(*a, **k), plain(*a, **k))
+        out = launch(*a, **k)
+        e = max_abs_err(out, plain(*a, **k))
         errs[name] = max(errs[name], e)
+        bms, by = bound(*work(name, a, k, out, sass)[1:])
         shapes = [tuple(x.shape) for x in a if torch.is_tensor(x)][:4]
-        ms = cuda_ms(lambda: launch(*a, **k), 5)
+        ms = kernel_ms(name, lambda: launch(*a, **k), 5)
         plain_ms = cuda_ms(lambda: plain(*a, **k), 1)
-        log(f"{name}: first main-path launch {shapes}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, max_abs_err {e}")
-        rows.append(dict(name=name, route="cuda", source=src,
-                         replaces=replaces, launches=launches[name],
-                         max_abs_err=errs[name], ms=round(ms, 4),
-                         plain_ms=round(plain_ms, 4)))
+        log(f"{name}: first main-path launch, first {CAP} items {shapes}: "
+            f"kernel {ms:.4f} ms device time, bound {bms:.4f} ms ({by}), "
+            f"plain "
+            f"{plain_ms:.4f} ms, max_abs_err {e}")
+        p = per[name]
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=errs[name],
+            ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+            bound_ms=round(bms, 4), bound_by=by, library_ms=None,
+            library="none: no PyTorch call computes this banded DP",
+            pass_ms=round(p["pass_ms"], 4),
+            pass_bound_ms=round(p["pass_bound_ms"], 4),
+            pass_bound_by=p["bound_by"],
+            bound_share=round(p["pass_bound_ms"] / p["pass_ms"], 4),
+            pass_rows=p["rows"]))
     if any(r["max_abs_err"] for r in rows):
         raise SystemExit("chip_smoke: a kernel disagrees with its plain "
                          "version at main-path shapes")
+
+    del spy
 
     # ---- small pairs: card == CPU path (== damar_tpu, per the tests) ----
     t0 = time.time()
@@ -348,8 +626,8 @@ def main(argv=None) -> int:
                                  "distinct": (blk_a, blk_b, False)}.items():
         outs = {}
         for d in (dev, "cpu"):
-            outs[str(d)] = overlap_block_pair(x, y, cfg, selfb,
-                                              emit_mirrors=True, device=d)
+            outs[str(d)] = ov.overlap_block_pair(x, y, cfg, selfb,
+                                                 emit_mirrors=True, device=d)
         gpu, cpu = outs[str(dev)], outs["cpu"]
         for i in (0, 1):
             problems = check_las(gpu[i], rlen)

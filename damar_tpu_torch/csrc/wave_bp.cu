@@ -1,32 +1,60 @@
 // Bit-parallel 32-diagonal band kernels: seed extension (K1) and
-// trace-point segmentation (K2).
+// trace-point segmentation (K2), designed for the H100 (sm_90a).
 //
-// Replace the Pallas TPU kernels of damar_tpu/ops/wave_bp_pallas.py:
-//   K1 bp_extend_kernel  <- _ext_chunk_kernel   (wave_bp_pallas.py:228)
-//   K2 bp_trace_kernel   <- _trace_chunk_kernel (wave_bp_pallas.py:420)
-// and are bit-identical to them and to their plain torch versions in
+// K1 bp_extend_kernel replaces _ext_chunk_kernel (damar_tpu/ops/
+//    wave_bp_pallas.py:228, driven by extend_wave_bp_pl);
+// K2 bp_trace_kernel  replaces _trace_chunk_kernel (wave_bp_pallas.py:420,
+//    driven by trace_wave_bp_pl).
+// Both are bit-identical to them and to their plain torch versions in
 // damar_tpu_torch/ops/wave_bp.py.
 //
-// Design: one thread per seed, every piece of band state (VP/VN delta
-// words, base, Peq planes, best trackers) in registers.  The TPU wrapper
-// loops over R-row chunks (K1) or tspace segments (K2) on the host side
-// of the kernel, with a device-wide "any seed active" test per chunk;
-// here each thread runs its own chunk/segment loop to its end, so a
-// batch is one launch.  That is exact because seeds are independent and
-// a seed's outputs never change once it is inactive (K1) or done (K2).
-// Characters are read straight from the packed 2-bit word pool with the
-// window gather's clip rule: char at pool position p is
-// (words[clip(p >> 4, 0, n-1)] >> 2*(p & 15)) & 3, with an arithmetic
-// shift that floors negative positions.
+// What bounds them on this card: integer operations.  A DP row of one
+// unit is a chain of dependent int32 ops on registers.  Built for
+// sm_90a, the 16-row loop takes 892 SASS instructions in K1 (55.75 a
+// row: row step, match planes, char extraction, plane shift-in, best
+// and x-drop tracking) and 630 in K2 (39.4 a row: no tracking, no
+// centre counter); chip_smoke.py counts them from the built code at
+// every run.  The work is the rows the outputs need: K1 sum(bva) over
+// its units, once per unit, K2 sum(alim) over its extents.  At 132 SMs
+// x 64 INT32 lanes x 1.98 GHz = 16.7 T int32 ops/s the large-50Mbp pass
+// needs ~2.5 ms of K1 and ~1.4 ms of K2.  Bytes are no bound: a unit
+// reads 21 bytes of arguments, writes 16 (K1) or 8 per segment (K2), and
+// reads its chars at 2 bits each.
 //
-// What bounds it on the card: the per-row work is ~60 dependent integer
-// ops, so the kernel is latency- and issue-bound, with divergence where
-// seeds of one warp run different chunk counts (the pipeline's batches
-// are sorted by length bound, which keeps warps homogeneous).  Register
-// pressure is low (~40 live values), so occupancy is high.
+// What the design does about it:
+//  * One launch covers every unit of a phase (K1) or every extent of a
+//    segment-count bucket (K2).  The grid is persistent, sized by the
+//    occupancy API to fill every SM; each warp takes the next 32 work
+//    items from a device counter (one atomic per 32 items), longest
+//    first (K1 through the `order` its wrapper sorts, K2 in the input
+//    order the driver lays out so), so a warp's lanes have similar
+//    lengths and the shortest items fill the tail.  Units are
+//    independent, so the order changes no output.
+//  * Characters come by word, ahead of use.  A CharStream holds the
+//    next pool words in registers, issues each load two 16-char groups
+//    (32 rows) before it is needed, and hands out 16 chars at a time
+//    aligned to the rows (a funnel shift of two words, then a 2-bit
+//    group reversal for reverse units), so a row extracts its char with
+//    a constant shift.  The Peq planes of a chunk or segment are built
+//    from two such groups by bit compaction.  The clip rule stays char
+//    for char: the char at pool position p is
+//    (words[clip(p >> 4, 0, n-1)] >> 2*(p & 15)) & 3, with an arithmetic
+//    shift that floors negative p (each word of a funnel pair is clipped
+//    on its own).
+//  * K2 writes each segment as one 8-byte store into a buffer the
+//    wrapper zeroed; the kernels allocate nothing.
+// Exactness points kept: first-min and first-max ties, u32 wraparound,
+// the guarded 32-bit shift in low_mask, jnp.clip's max-then-min order.
+//
+// The per-unit functions (extend_unit, trace_extent and what they call)
+// also compile as host C++ when the intrinsics are given host
+// definitions: everything CUDA-only is under __CUDACC__.
+// tests/test_torch_wave_bp_host.py builds them so and holds them against
+// the plain versions on the CPU.
 #include <cstdint>
-#include <climits>
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 
 namespace {
 
@@ -37,30 +65,87 @@ constexpr int NEG_I = -(1 << 20);
 constexpr uint32_t NOT1 = 0xFFFFFFFEu;
 constexpr uint32_t VN0 = (1u << (CTR + 1)) - 1u;
 constexpr uint32_t VP0 = 0xFFFFFFFFu ^ VN0;
-
-// Cached reader of the packed base pool (one word per 16 positions).
-struct Pool {
-  const int32_t* w;
-  int n;
-  int cur;
-  uint32_t word;
-  __device__ Pool(const int32_t* words, int nwords)
-      : w(words), n(nwords), cur(INT_MIN), word(0u) {}
-  __device__ __forceinline__ int at(int p) {
-    int wi = p >> 4;  // arithmetic: floors negative positions
-    wi = wi < 0 ? 0 : (wi > n - 1 ? n - 1 : wi);
-    if (wi != cur) {
-      cur = wi;
-      word = static_cast<uint32_t>(__ldg(w + wi));
-    }
-    return static_cast<int>((word >> (2 * (p & 15))) & 3u);
-  }
-};
+constexpr int THREADS = 128;
+constexpr int WARP = 32;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   // jnp.clip order: max first, then min
   x = x > lo ? x : lo;
   return x < hi ? x : hi;
+}
+
+__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ w,
+                                              int n, int i) {
+  return __ldg(w + clampi(i, 0, n - 1));
+}
+
+// Reverse the 16 2-bit groups of a word.
+__device__ __forceinline__ uint32_t rev16(uint32_t g) {
+  g = __brev(g);
+  return ((g >> 1) & 0x55555555u) | ((g & 0x55555555u) << 1);
+}
+
+// Bits 0, 2, ..., 30 of x packed into bits 0..15.
+__device__ __forceinline__ uint32_t even_bits(uint32_t x) {
+  x &= 0x55555555u;
+  x = (x | (x >> 1)) & 0x33333333u;
+  x = (x | (x >> 2)) & 0x0F0F0F0Fu;
+  x = (x | (x >> 4)) & 0x00FF00FFu;
+  return (x | (x >> 8)) & 0x0000FFFFu;
+}
+
+// The chars at pool positions p, p+1, ... (forward) or p, p-1, ...
+// (reverse), 16 per call with stream char k at bits [2k, 2k+2).
+struct CharStream {
+  const uint32_t* w;
+  int n, fi, step;
+  uint32_t sh, carry, q0, q1;
+  bool rev;
+
+  __device__ __forceinline__ void start(const uint32_t* words, int nwords,
+                                        int p, bool reverse) {
+    w = words;
+    n = nwords;
+    rev = reverse;
+    step = reverse ? -1 : 1;
+    const int lo = reverse ? p - 15 : p;  // lowest position of group 0
+    const int wi = lo >> 4;               // arithmetic: floors
+    sh = 2u * static_cast<uint32_t>(lo & 15);
+    // group j reads words wi + step*j and wi + step*j + 1: one is shared
+    // with group j - 1 (carry), one is new (q0, loaded ahead as q1)
+    carry = load_word(w, n, reverse ? wi + 1 : wi);
+    fi = reverse ? wi : wi + 1;
+    q0 = load_word(w, n, fi);
+    q1 = load_word(w, n, fi + step);
+  }
+
+  __device__ __forceinline__ uint32_t next16() {
+    const uint32_t nw = q0;
+    q0 = q1;
+    q1 = load_word(w, n, fi + 2 * step);
+    fi += step;
+    const uint32_t lo = rev ? nw : carry;
+    const uint32_t hi = rev ? carry : nw;
+    carry = nw;
+    const uint32_t g = __funnelshift_r(lo, hi, sh);
+    return rev ? rev16(g) : g;
+  }
+};
+
+__device__ __forceinline__ uint32_t low_mask(int m) {
+  return m >= 32 ? 0xFFFFFFFFu : (1u << m) - 1u;
+}
+
+// Peq planes of the 32 chars of g0 | g1 << 32, at v-indices v0b + j
+// (valid iff 0 <= v0b + j < blim).
+__device__ __forceinline__ void init_planes(uint32_t g0, uint32_t g1,
+                                            int v0b, int blim, uint32_t& PH,
+                                            uint32_t& PL, uint32_t& PV) {
+  PL = even_bits(g0) | (even_bits(g1) << 16);
+  PH = even_bits(g0 >> 1) | (even_bits(g1 >> 1) << 16);
+  const int lo = clampi(-v0b, 0, BW);
+  const int hi = clampi(blim - v0b, 0, BW);
+  PV = hi > lo ? (low_mask(hi) & ~low_mask(lo)) : 0u;
 }
 
 __device__ __forceinline__ uint32_t eq_bits(uint32_t PH, uint32_t PL,
@@ -97,10 +182,6 @@ __device__ __forceinline__ void shift_planes(uint32_t& PH, uint32_t& PL,
   PV = (PV >> 1) | (static_cast<uint32_t>(nvalid) << (BW - 1));
 }
 
-__device__ __forceinline__ uint32_t low_mask(int m) {
-  return m >= 32 ? 0xFFFFFFFFu : (1u << m) - 1u;
-}
-
 // Recenter the delta words by `drift` (ops.wave_bp_pallas._recenter).
 __device__ __forceinline__ void recenter(uint32_t& VP, uint32_t& VN,
                                          int& Db, int& Dc, int d) {
@@ -128,78 +209,78 @@ __device__ __forceinline__ void recenter(uint32_t& VP, uint32_t& VN,
   Dc = Dcn;
 }
 
-template <typename F>
-__device__ __forceinline__ void init_planes(F bchar, int v0b, int blim,
-                                            uint32_t& PH, uint32_t& PL,
-                                            uint32_t& PV) {
-  PH = PL = PV = 0u;
-  for (int j = 0; j < BW; ++j) {
-    int c = bchar(v0b + j);
-    int p = v0b + j;
-    PH |= static_cast<uint32_t>((c >> 1) & 1) << j;
-    PL |= static_cast<uint32_t>(c & 1) << j;
-    PV |= static_cast<uint32_t>(p >= 0 && p < blim) << j;
-  }
-}
+struct ExtParams {
+  const uint32_t* aw;
+  const uint32_t* bw;
+  int na, nb, R, max_rows, diff_cost, xdrop;
+};
 
-__global__ void bp_extend_kernel(
-    const int32_t* __restrict__ aw, int na, const int32_t* __restrict__ bw,
-    int nb, const int32_t* __restrict__ aorigin,
-    const int32_t* __restrict__ borigin, const int32_t* __restrict__ alim_,
-    const int32_t* __restrict__ blim_, const uint8_t* __restrict__ dirs,
-    int S, int R, int max_rows, int diff_cost, int xdrop,
-    int32_t* __restrict__ bs_o, int32_t* __restrict__ bva_o,
-    int32_t* __restrict__ bvb_o, int32_t* __restrict__ act_o) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int ao = aorigin[s], bo = borigin[s];
-  const int alim = alim_[s], blim = blim_[s];
-  const bool rv = dirs[s] != 0;
-  Pool A(aw, na), B(bw, nb);
-  // v-space index -> char: forward origin + v, reverse origin - 1 - v
-  auto achar = [&](int v) { return A.at(rv ? ao - 1 - v : ao + v); };
-  auto bchar = [&](int v) { return B.at(rv ? bo - 1 - v : bo + v); };
-
+// K1 on one unit: R-row chunks until the unit dies or max_rows.
+__device__ void extend_unit(const ExtParams& P, int ao, int bo, int alim,
+                            int blim, bool rv, int& bs_o, int& bva_o,
+                            int& bvb_o, bool& act_o) {
+  CharStream A, B;
+  // v-space index v -> pool position: forward origin + v, reverse
+  // origin - 1 - v
+  A.start(P.aw, P.na, rv ? ao - 1 : ao, rv);
   uint32_t VP = VP0, VN = VN0;
   int Db = CTR + 1, Dc = 0;
   int vbb = 1 - CTR;
   bool active = alim > 0;
   int bs = 0, bva = 0, bvb = 0;
-  for (int rtot = 0; active && rtot < max_rows; rtot += R) {
+  const int dlim = P.xdrop + P.diff_cost;
+  for (int rtot = 0; active && rtot < P.max_rows; rtot += P.R) {
+    B.start(P.bw, P.nb, rv ? bo - vbb : bo + vbb - 1, rv);
     uint32_t PH, PL, PV;
-    init_planes(bchar, vbb - 1, blim, PH, PL, PV);
+    {
+      const uint32_t g0 = B.next16();
+      const uint32_t g1 = B.next16();
+      init_planes(g0, g1, vbb - 1, blim, PH, PL, PV);
+    }
+    // row r of the chunk: in range (t <= alim, 0 <= vc <= blim) iff
+    // rlo <= r <= rhi; its shift-in char valid iff vlo <= r < vhi
+    const int rlo = -vbb - CTR;
+    const int rhi = min(alim - rtot - 1, blim - vbb - CTR);
+    const int vlo = -(vbb + BW - 1);
+    const int vhi = blim - (vbb + BW - 1);
+    const int s0 = rtot + 1 + vbb + CTR;  // t + vc at r = 0
     bool died = false;
-    for (int r = 0; r < R; ++r) {
-      int x = achar(rtot + r);
-      row_step(VP, VN, Db, Dc, eq_bits(PH, PL, PV, x));
-      int t = rtot + r + 1;
-      int vc = vbb + r + CTR;
-      int sc = t + vc - diff_cost * Dc;
-      bool ok = (t <= alim) && (vc >= 0) && (vc <= blim);
-      if (ok && sc > bs) {
-        bs = sc;
-        bva = t;
-        bvb = vc;
+    for (int r0 = 0; r0 < P.R; r0 += 16) {
+      const uint32_t ga = A.next16();
+      const uint32_t gb = B.next16();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = r0 + i;
+        const int x = static_cast<int>((ga >> (2 * i)) & 3u);
+        row_step(VP, VN, Db, Dc, eq_bits(PH, PL, PV, x));
+        const int sc = s0 + 2 * r - P.diff_cost * Dc;
+        const bool ok = r >= rlo && r <= rhi;
+        if (ok && sc > bs) {
+          bs = sc;
+          bva = rtot + r + 1;
+          bvb = vbb + r + CTR;
+        }
+        died = died || (ok && sc < bs - dlim);
+        shift_planes(PH, PL, PV, static_cast<int>((gb >> (2 * i)) & 3u),
+                     r >= vlo && r < vhi);
       }
-      died = died || (ok && sc < bs - (xdrop + diff_cost));
-      int nbp = vbb + r + BW - 1;
-      shift_planes(PH, PL, PV, bchar(nbp), nbp >= 0 && nbp < blim);
     }
     // chunk tail: band-wide score max (first max), first-min column
-    int t = rtot + R;
-    int vbb_t = vbb + R - 1;
-    bool extra = t <= alim;
+    const int t = rtot + P.R;
+    const int vbb_t = vbb + P.R - 1;
+    const bool extra = t <= alim;
     int D = Db, smax = NEG_I, jbest = 0, dmin = 1 << 30, jmin = 0;
+#pragma unroll 8
     for (int j = 0; j < BW; ++j) {
       D += static_cast<int>((VP >> j) & 1u) - static_cast<int>((VN >> j) & 1u);
-      int vb = vbb_t + j;
-      bool in_b = vb >= 0 && vb <= blim;
-      int sc = (in_b && extra) ? vb - diff_cost * D : NEG_I;
+      const int vb = vbb_t + j;
+      const bool in_b = vb >= 0 && vb <= blim;
+      const int sc = (in_b && extra) ? vb - P.diff_cost * D : NEG_I;
       if (sc > smax) {
         smax = sc;
         jbest = j;
       }
-      int Dm = in_b ? D : INF_I;
+      const int Dm = in_b ? D : INF_I;
       if (Dm < dmin) {
         dmin = Dm;
         jmin = j;
@@ -211,16 +292,16 @@ __global__ void bp_extend_kernel(
       bva = t;
       bvb = vbb_t + jbest;
     }
-    bool act = (smax >= bs - xdrop) && (t < alim) && !died;
-    int drift = act ? jmin - CTR : 0;
+    const bool act = (smax >= bs - P.xdrop) && (t < alim) && !died;
+    const int drift = act ? jmin - CTR : 0;
     recenter(VP, VN, Db, Dc, drift);
     vbb = vbb_t + 1 + drift;
     active = act;
   }
-  bs_o[s] = bs;
-  bva_o[s] = bva;
-  bvb_o[s] = bvb;
-  act_o[s] = active ? 1 : 0;
+  bs_o = bs;
+  bva_o = bva;
+  bvb_o = bvb;
+  act_o = active;
 }
 
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -228,56 +309,79 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-__global__ void bp_trace_kernel(
-    const int32_t* __restrict__ aw, int na, const int32_t* __restrict__ bw,
-    int nb, const int32_t* __restrict__ astart,
-    const int32_t* __restrict__ bstart, const int32_t* __restrict__ abpos,
-    const int32_t* __restrict__ bbpos, const int32_t* __restrict__ alim_,
-    const int32_t* __restrict__ blim_, int S, int TS, int max_segs,
-    int32_t* __restrict__ trace, int32_t* __restrict__ nseg_o,
-    int32_t* __restrict__ dsum_o) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int abp = abpos[s];
-  const int ao = astart[s] + abp, bo = bstart[s] + bbpos[s];
-  const int alim = alim_[s], blim = blim_[s];
-  Pool A(aw, na), B(bw, nb);
-  auto bchar = [&](int v) { return B.at(bo + v); };
+// 16 (or, with GUARD, the first n) rows of a K2 segment.
+template <bool GUARD>
+__device__ __forceinline__ void trace_rows16(
+    uint32_t ga, uint32_t gb, int r0, int n, int vlo, int vhi, uint32_t& VP,
+    uint32_t& VN, int& Db, uint32_t& PH, uint32_t& PL, uint32_t& PV) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if (!GUARD || i < n) {
+      int Dc = 0;  // the centre counter is dead in the trace
+      const int r = r0 + i;
+      row_step(VP, VN, Db, Dc,
+               eq_bits(PH, PL, PV, static_cast<int>((ga >> (2 * i)) & 3u)));
+      shift_planes(PH, PL, PV, static_cast<int>((gb >> (2 * i)) & 3u),
+                   r >= vlo && r < vhi);
+    }
+  }
+}
+
+struct TraceParams {
+  const uint32_t* aw;
+  const uint32_t* bw;
+  int na, nb, TS, max_segs;
+};
+
+// K2 on one extent: tspace segments until alim or max_segs; segment k
+// goes to out[k], the counts to nseg_o/dsum_o.
+__device__ void trace_extent(const TraceParams& P, int abp, int ao, int bo,
+                             int alim, int blim, int2* __restrict__ out,
+                             int32_t& nseg_o, int32_t& dsum_o) {
   uint32_t VP = VP0, VN = VN0;
   int Db = CTR + 1;
   int vbb = 1 - CTR;
   int done = 0, nseg = 0, prev_vb = 0, dsum = 0;
-  int32_t* out = trace + static_cast<size_t>(s) * max_segs * 2;
-  for (int k = 0; k < max_segs; ++k) {
-    if (!(done < alim)) {
-      out[2 * k] = 0;
-      out[2 * k + 1] = 0;
-      continue;
-    }
-    int a = abp + done;
-    int nxt = (floordiv(a, TS) + 1) * TS - a;
-    int seg_rows = nxt < alim - done ? nxt : alim - done;
+  for (int k = 0; k < P.max_segs && done < alim; ++k) {
+    const int a = abp + done;
+    const int nxt = (floordiv(a, P.TS) + 1) * P.TS - a;
+    const int seg_rows = nxt < alim - done ? nxt : alim - done;
+    CharStream A, B;
+    A.start(P.aw, P.na, ao + done, false);
+    B.start(P.bw, P.nb, bo + vbb - 1, false);
     uint32_t PH, PL, PV;
-    init_planes(bchar, vbb - 1, blim, PH, PL, PV);
-    int Dc = 0;
-    for (int r = 0; r < seg_rows; ++r) {
-      int x = A.at(ao + done + r);
-      row_step(VP, VN, Db, Dc, eq_bits(PH, PL, PV, x));
-      int nbp = vbb + r + BW - 1;
-      shift_planes(PH, PL, PV, bchar(nbp), nbp >= 0 && nbp < blim);
+    {
+      const uint32_t g0 = B.next16();
+      const uint32_t g1 = B.next16();
+      init_planes(g0, g1, vbb - 1, blim, PH, PL, PV);
+    }
+    const int vlo = -(vbb + BW - 1);
+    const int vhi = blim - (vbb + BW - 1);
+    int r0 = 0;
+    for (; r0 + 16 <= seg_rows; r0 += 16) {
+      const uint32_t ga = A.next16();
+      trace_rows16<false>(ga, B.next16(), r0, 16, vlo, vhi, VP, VN, Db,
+                          PH, PL, PV);
+    }
+    if (r0 < seg_rows) {
+      const uint32_t ga = A.next16();
+      trace_rows16<true>(ga, B.next16(), r0, seg_rows - r0, vlo, vhi, VP,
+                         VN, Db, PH, PL, PV);
     }
     // commit point: first min over valid columns past prev_vb, or the
     // end column at the last segment
-    int va = done + seg_rows;
-    bool at_end = va == alim;
-    int vbb_end = vbb + seg_rows - 1;
-    int j_end = clampi(blim - vbb_end, 0, BW - 1);
+    const int va = done + seg_rows;
+    const bool at_end = va == alim;
+    const int vbb_end = vbb + seg_rows - 1;
+    const int j_end = clampi(blim - vbb_end, 0, BW - 1);
     int D = Db, dmin = 1 << 30, jmin = 0, dsel = 0, dend = 0;
+#pragma unroll 8
     for (int j = 0; j < BW; ++j) {
-      D += static_cast<int>((VP >> j) & 1u) - static_cast<int>((VN >> j) & 1u);
-      int vb = vbb_end + j;
-      bool mvalid = vb >= 0 && vb <= blim && vb > prev_vb;
-      int Dm = mvalid ? D : INF_I;
+      D += static_cast<int>((VP >> j) & 1u) -
+           static_cast<int>((VN >> j) & 1u);
+      const int vb = vbb_end + j;
+      const bool mvalid = vb >= 0 && vb <= blim && vb > prev_vb;
+      const int Dm = mvalid ? D : INF_I;
       if (Dm < dmin) {
         dmin = Dm;
         jmin = j;
@@ -285,8 +389,8 @@ __global__ void bp_trace_kernel(
       }
       if (j == j_end) dend = D;
     }
-    int j_com = at_end ? j_end : jmin;
-    int vb_com = clampi(vbb_end + j_com, prev_vb, blim);
+    const int j_com = at_end ? j_end : jmin;
+    const int vb_com = clampi(vbb_end + j_com, prev_vb, blim);
     int d_com = at_end ? dend : dsel;
     if (d_com >= INF_I) d_com = alim + blim;
     // fresh V-shaped band at the committed column
@@ -294,35 +398,114 @@ __global__ void bp_trace_kernel(
     VN = VN0;
     Db = CTR + 1;
     vbb = vb_com - CTR + 1;
-    out[2 * k] = d_com;
-    out[2 * k + 1] = vb_com - prev_vb;
+    out[k] = make_int2(d_com, vb_com - prev_vb);
     done += seg_rows;
     nseg += 1;
     prev_vb = vb_com;
     dsum += d_com;
   }
-  nseg_o[s] = nseg;
-  dsum_o[s] = dsum;
+  nseg_o = nseg;
+  dsum_o = dsum;
 }
 
-constexpr int THREADS = 128;
+#ifdef __CUDACC__
+// The next 32 work items of this warp from the launch's counter, as the
+// first item's index (warp-uniform).
+__device__ __forceinline__ int take_run(int* counter) {
+  int base = 0;
+  if ((threadIdx.x & (WARP - 1)) == 0) base = atomicAdd(counter, WARP);
+  return __shfl_sync(0xFFFFFFFFu, base, 0);
+}
+
+__global__ void __launch_bounds__(THREADS) bp_extend_kernel(
+    ExtParams P, const int32_t* __restrict__ aorigin,
+    const int32_t* __restrict__ borigin, const int32_t* __restrict__ alim_,
+    const int32_t* __restrict__ blim_, const uint8_t* __restrict__ dirs,
+    const int32_t* __restrict__ order, int S, int* counter,
+    int32_t* __restrict__ bs_o, int32_t* __restrict__ bva_o,
+    int32_t* __restrict__ bvb_o, int32_t* __restrict__ act_o) {
+  for (;;) {
+    const int base = take_run(counter);
+    if (base >= S) return;
+    const int i = base + static_cast<int>(threadIdx.x & (WARP - 1));
+    if (i < S) {
+      const int s = order[i];
+      int bs, bva, bvb;
+      bool act;
+      extend_unit(P, aorigin[s], borigin[s], alim_[s], blim_[s],
+                  dirs[s] != 0, bs, bva, bvb, act);
+      bs_o[s] = bs;
+      bva_o[s] = bva;
+      bvb_o[s] = bvb;
+      act_o[s] = act ? 1 : 0;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) bp_trace_kernel(
+    TraceParams P, const int32_t* __restrict__ astart,
+    const int32_t* __restrict__ bstart, const int32_t* __restrict__ abpos,
+    const int32_t* __restrict__ bbpos, const int32_t* __restrict__ alim_,
+    const int32_t* __restrict__ blim_, int S, int* counter,
+    int2* __restrict__ trace, int32_t* __restrict__ nseg_o,
+    int32_t* __restrict__ dsum_o) {
+  for (;;) {
+    const int base = take_run(counter);
+    if (base >= S) return;
+    const int s = base + static_cast<int>(threadIdx.x & (WARP - 1));
+    if (s < S) {
+      const int abp = abpos[s];
+      trace_extent(P, abp, astart[s] + abp, bstart[s] + bbpos[s], alim_[s],
+                   blim_[s], trace + static_cast<size_t>(s) * P.max_segs,
+                   nseg_o[s], dsum_o[s]);
+    }
+  }
+}
+
+// Persistent grid: as many blocks as fit on the card at once, but no
+// more than the work needs.  The fit is fixed per kernel and device, so
+// it is asked once (the occupancy query costs host time on every launch
+// otherwise, while the stream may stand idle).
+template <typename K>
+int grid_for(K kernel, int S) {
+  static int fit_of[64] = {0};  // per device ordinal, one table per kernel
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& fit = fit_of[dev & 63];
+  if (fit == 0) {
+    int sms = 1, per_sm = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                  0);
+    fit = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int need = (S + THREADS - 1) / THREADS;
+  return fit < need ? fit : need;
+}
+
+#endif  // __CUDACC__
 
 }  // namespace
 
+#ifdef __CUDACC__
 extern "C" int bp_extend_launch(
     const void* aw, int na, const void* bw, int nb, const void* aorigin,
     const void* borigin, const void* alim, const void* blim,
-    const void* dirs, int S, int R, int max_rows, int diff_cost, int xdrop,
-    void* bs, void* bva, void* bvb, void* act, void* stream) {
+    const void* dirs, const void* order, int S, int R, int max_rows,
+    int diff_cost, int xdrop, void* counter, void* bs, void* bva, void* bvb,
+    void* act, void* stream) {
+  if (R <= 0 || R % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (S > 0) {
-    bp_extend_kernel<<<(S + THREADS - 1) / THREADS, THREADS, 0,
+    ExtParams P{static_cast<const uint32_t*>(aw),
+                static_cast<const uint32_t*>(bw), na, nb, R, max_rows,
+                diff_cost, xdrop};
+    bp_extend_kernel<<<grid_for(bp_extend_kernel, S), THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(aw), na,
-        static_cast<const int32_t*>(bw), nb,
-        static_cast<const int32_t*>(aorigin),
+        P, static_cast<const int32_t*>(aorigin),
         static_cast<const int32_t*>(borigin),
         static_cast<const int32_t*>(alim), static_cast<const int32_t*>(blim),
-        static_cast<const uint8_t*>(dirs), S, R, max_rows, diff_cost, xdrop,
+        static_cast<const uint8_t*>(dirs),
+        static_cast<const int32_t*>(order), S, static_cast<int*>(counter),
         static_cast<int32_t*>(bs), static_cast<int32_t*>(bva),
         static_cast<int32_t*>(bvb), static_cast<int32_t*>(act));
   }
@@ -333,18 +516,20 @@ extern "C" int bp_trace_launch(
     const void* aw, int na, const void* bw, int nb, const void* astart,
     const void* bstart, const void* abpos, const void* bbpos,
     const void* alim, const void* blim, int S, int tspace, int max_segs,
-    void* trace, void* nseg, void* dsum, void* stream) {
+    void* counter, void* trace, void* nseg, void* dsum, void* stream) {
   if (S > 0) {
-    bp_trace_kernel<<<(S + THREADS - 1) / THREADS, THREADS, 0,
+    TraceParams P{static_cast<const uint32_t*>(aw),
+                  static_cast<const uint32_t*>(bw), na, nb, tspace, max_segs};
+    bp_trace_kernel<<<grid_for(bp_trace_kernel, S), THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(aw), na,
-        static_cast<const int32_t*>(bw), nb,
-        static_cast<const int32_t*>(astart),
+        P, static_cast<const int32_t*>(astart),
         static_cast<const int32_t*>(bstart),
         static_cast<const int32_t*>(abpos), static_cast<const int32_t*>(bbpos),
         static_cast<const int32_t*>(alim), static_cast<const int32_t*>(blim),
-        S, tspace, max_segs, static_cast<int32_t*>(trace),
-        static_cast<int32_t*>(nseg), static_cast<int32_t*>(dsum));
+        S, static_cast<int*>(counter),
+        static_cast<int2*>(trace), static_cast<int32_t*>(nseg),
+        static_cast<int32_t*>(dsum));
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // __CUDACC__

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (damar_tpu_torch/csrc/*.cu).
 
-The sources are compiled by hand with nvcc into one shared library with
-a plain C interface and loaded through ctypes: no PyTorch headers, so a
-build takes seconds.  The library lands in damar_tpu_torch/_build/ under
-a name that carries a hash of the sources and flags, and is built at
-first use (never at import: the CPU tests import every module).
+The sources are compiled by hand with nvcc, one process per source, all
+started together, then linked into one shared library with a plain C
+interface and loaded through ctypes: no PyTorch headers, so a build
+takes seconds.  The library lands in damar_tpu_torch/_build/ under a
+name that carries a hash of the sources and flags, and is built at first
+use (never at import: the CPU tests import every module).  ptxas reports
+each kernel's registers, spills and shared memory; `build_log` keeps
+those lines of the last build.
 
 Each C entry point takes device pointers and the CUDA stream as void
 pointers, launches on that stream, and returns cudaGetLastError(); the
@@ -24,17 +27,18 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 # C entry point -> argument types (the return type is int everywhere)
 SIGNATURES = {
-    "bp_extend_launch": [P, I, P, I, P, P, P, P, P, I, I, I, I, I,
-                         P, P, P, P, P],
+    "bp_extend_launch": [P, I, P, I, P, P, P, P, P, P, I, I, I, I, I,
+                         P, P, P, P, P, P],
     "bp_trace_launch": [P, I, P, I, P, P, P, P, P, P, I, I, I,
-                        P, P, P, P],
+                        P, P, P, P, P],
     "dp_rows_launch": [P, P, I, P, I, P, P, P, P, P, P,
                        P, P, P, P,
                        P, P, P, P, P, P, P,
@@ -44,6 +48,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 last_build_seconds: float | None = None
+build_log: list[str] = []
 
 
 def _nvcc() -> str:
@@ -69,24 +74,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdamar_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; raise with the output of the first
+    that fails; return each one's stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{so}\n{se}")
+    return [se for _, se in outs]
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed shared library (if absent)."""
-    global last_build_seconds
+    global last_build_seconds, build_log
     import time
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in _sources()]
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    logs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                     for s, o in zip(_sources(), objs)])
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    _run_all([[_nvcc(), *ARCH, "-shared", "-o", str(tmp),
+               *[str(o) for o in objs]]])
     os.replace(tmp, out)
+    for o in objs:
+        o.unlink()
     last_build_seconds = time.time() - t0
+    build_log = [ln.strip() for log in logs for ln in log.splitlines()
+                 if "ptxas info" in ln or "bytes stack frame" in ln]
     return out
 
 

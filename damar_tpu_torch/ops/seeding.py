@@ -313,15 +313,17 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
                              seed_cap: int = 1 << 17, a_index=None,
                              dev_arrays=None, raw_hint: int | None = None,
                              self_pair: bool = False, bias_lut=None,
-                             emit_hint: int | None = None,
+                             emit_hint: int | None = None, *,
                              device=None):
     """Device canonical seeding of one block pair: one index merge and
     one banding sort give the seeds of BOTH orientations (comp bit per
     seed; comp seeds carry bpos in per-read reverse-complement
     coordinates).  self_pair: A and B are the same block (the merge
     collapses to match_count_self).  dev_arrays: (a_bases, a_rid,
-    b_bases, b_rid) tensors already on the device; mask_a/mask_b:
-    optional bool tensors on that device.  Returns a dict of seed
+    b_bases, b_rid) tensors already on the device, which is then theirs;
+    without them `device` (keyword-only) names where the blocks go, and
+    leaving out both raises TypeError.  mask_a/mask_b: optional bool
+    tensors on that device.  Returns a dict of seed
     tensors [seed_cap] and host ints (nseeds, total_seeds, total_hits,
     total_compact, total_emit, tcap, overflow, raw_cap, compact_cap)."""
     if getattr(cfg, "bias", False) or bias_lut is not None:
@@ -336,6 +338,12 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
             "seeding path is not ported")
     if dev_arrays is not None:
         a_bases, a_rid, b_bases, b_rid = dev_arrays
+        if device is not None and torch.device(device) != a_bases.device:
+            raise ValueError(f"device {device} but dev_arrays are on "
+                             f"{a_bases.device}")
+    elif device is None:
+        raise TypeError("find_seeds_canonical_dev: pass device= (or "
+                        "dev_arrays): there is no default device")
     else:
         a_bases = torch.as_tensor(blk_a.bases, device=device)
         a_rid = torch.as_tensor(blk_a.read_id, device=device)

@@ -69,10 +69,6 @@ def radix_sort_packed(words, payloads, total_bits: int):
     return out[:nw], out[nw:]
 
 
-def stable_argsort(x: torch.Tensor) -> torch.Tensor:
-    return torch.sort(x, stable=True)[1]
-
-
 def compact_flagged(live: torch.Tensor, arrays, out_cap: int,
                     fill: int = -1):
     """Compact elements where live is True into a prefix buffer of

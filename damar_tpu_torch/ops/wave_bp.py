@@ -12,10 +12,12 @@ ctypes, see ops/_cuda.py):
   K1 bp_extend_kernel  replaces _ext_chunk_kernel   (wave_bp_pallas.py:228)
   K2 bp_trace_kernel   replaces _trace_chunk_kernel (wave_bp_pallas.py:420)
 One thread per seed with all band state in registers; the chunk loop
-(K1) and the segment loop (K2) run inside the kernel, so a batch is one
-launch.  They are bound by integer-op latency and by divergence between
-seeds of one warp that run different chunk counts (the pipeline sorts
-batches by length bound to keep warps homogeneous).
+(K1) and the segment loop (K2) run inside the kernel.  A launch covers
+any number of seeds: a persistent grid hands them out to warps, 32 at a
+time, longest first so that a warp's lanes stay alike (K1's wrapper
+sorts the units by bound; K2 takes its input order, which the driver
+lays out so).  They are bound by integer operations (chip_smoke.py
+counts them from the built kernels).
 
 Beside each kernel, its plain torch version: the same computation as
 tensor ops over the seed axis, holding uint32 values in int64 tensors.
@@ -304,25 +306,44 @@ def _i32c(x):
     return x.to(torch.int32).contiguous()
 
 
+def _check_same_device(name, dev, tensors):
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must share one CUDA "
+                             "device")
+
+
+def longest_first(alim, blim):
+    """K1's work order: a permutation of the seeds by descending bound
+    min(alim, blim), dead seeds (alim <= 0) last.  Seeds are independent,
+    so the order changes no output."""
+    bound = torch.where(alim > 0, torch.minimum(alim, blim), -1)
+    return torch.argsort(bound, descending=True)
+
+
 def extend_bp_kernel(a_words, b_words, aorigin, borigin, alim, blim, rv,
                      R: int, max_rows: int, diff_cost: int, xdrop: int):
-    """Launch K1 on the current CUDA stream: returns (bs, bva, bvb,
-    active) int32."""
+    """Launch K1 on the current CUDA stream over all S seeds: returns
+    (bs, bva, bvb, active) int32.  Warps take the seeds in
+    longest_first order, which fills the card best."""
+    if R <= 0 or R % 16:
+        raise ValueError(f"extend_bp_kernel: R = {R} must be a positive "
+                         "multiple of 16")
     lib = _cuda.lib()
     S = aorigin.shape[0]
     dev = aorigin.device
     aw, bw = _i32c(a_words), _i32c(b_words)
     ins = [_i32c(x) for x in (aorigin, borigin, alim, blim)]
     dirs = rv.to(torch.uint8).contiguous()
-    for t in (aw, bw, dirs, *ins):
-        if t.device != dev:
-            raise ValueError("extend_bp_kernel: all tensors must share "
-                             "one CUDA device")
+    _check_same_device("extend_bp_kernel", dev, (aw, bw, dirs, *ins))
+    order = _i32c(longest_first(ins[2], ins[3]))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     outs = [torch.empty(S, dtype=torch.int32, device=dev) for _ in range(4)]
     err = lib.bp_extend_launch(
         aw.data_ptr(), aw.shape[0], bw.data_ptr(), bw.shape[0],
-        *[t.data_ptr() for t in ins], dirs.data_ptr(), S, R, max_rows,
-        diff_cost, xdrop, *[o.data_ptr() for o in outs],
+        *[t.data_ptr() for t in ins], dirs.data_ptr(), order.data_ptr(),
+        S, R, max_rows,
+        diff_cost, xdrop, counter.data_ptr(), *[o.data_ptr() for o in outs],
         _cuda.stream_ptr(aorigin))
     _cuda.check(err, "bp_extend_kernel")
     extend_wave_bp.launches += 1
@@ -331,25 +352,26 @@ def extend_bp_kernel(a_words, b_words, aorigin, borigin, alim, blim, rv,
 
 def trace_bp_kernel(a_words, b_words, astart, bstart, abpos, bbpos, alim,
                     blim, tspace: int, max_segs: int):
-    """Launch K2 on the current CUDA stream: returns (trace [S, max_segs,
-    2], nseg, dsum) int32."""
+    """Launch K2 on the current CUDA stream over all S extents: returns
+    (trace [S, max_segs, 2], nseg, dsum) int32.  Warps take the extents
+    in input order, so a caller that lays them out longest first fills
+    the card best."""
     lib = _cuda.lib()
     S = abpos.shape[0]
     dev = abpos.device
     aw, bw = _i32c(a_words), _i32c(b_words)
     ins = [_i32c(x) for x in (astart, bstart, abpos, bbpos, alim, blim)]
-    for t in (aw, bw, *ins):
-        if t.device != dev:
-            raise ValueError("trace_bp_kernel: all tensors must share "
-                             "one CUDA device")
-    trace = torch.empty((S, max_segs, 2), dtype=torch.int32, device=dev)
+    _check_same_device("trace_bp_kernel", dev, (aw, bw, *ins))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    # the kernel writes segments [0, nseg) only
+    trace = torch.zeros((S, max_segs, 2), dtype=torch.int32, device=dev)
     nseg = torch.empty(S, dtype=torch.int32, device=dev)
     dsum = torch.empty(S, dtype=torch.int32, device=dev)
     err = lib.bp_trace_launch(
         aw.data_ptr(), aw.shape[0], bw.data_ptr(), bw.shape[0],
         *[t.data_ptr() for t in ins], S, tspace, max_segs,
-        trace.data_ptr(), nseg.data_ptr(), dsum.data_ptr(),
-        _cuda.stream_ptr(abpos))
+        counter.data_ptr(), trace.data_ptr(), nseg.data_ptr(),
+        dsum.data_ptr(), _cuda.stream_ptr(abpos))
     _cuda.check(err, "bp_trace_kernel")
     trace_wave_bp.launches += 1
     return trace, nseg, dsum

@@ -37,19 +37,20 @@ from damar_tpu_torch.formats.oflags import OVL_COMP
 from damar_tpu_torch.ops.seeding import (canonical_index_dev,
                                          find_seeds_canonical_dev,
                                          quantize_bits)
-from damar_tpu_torch.ops.sort import (pack_fields, radix_sort_packed,
-                                      stable_argsort)
+from damar_tpu_torch.ops.sort import pack_fields, radix_sort_packed
 from damar_tpu_torch.ops.wave_bp import extend_wave_bp, trace_wave_bp
 from damar_tpu_torch.ops.wave_wide import trace_wave
 from damar_tpu_torch.ops.words import pack_bases
 
 EXT_KEYS = ("aread", "bread", "abpos", "aepos", "bbpos", "bepos",
             "diffs")
-INT32_MAX = int(np.iinfo(np.int32).max)
-SEED_PREP_Q = 512          # bound-array downsample stride for batch planning
-# seed-chunks per device launch (width x loop-iterations): the bulk of
-# short units rides wide launches, long tails narrow ones
+# wide retry round (K3): seed-chunks per device launch (width x
+# loop-iterations), the bulk of short units in wide launches, long tails
+# in narrow ones
 AREA_CHUNKS_DEV = 1 << 19
+# bp trace (K2): the most bytes one launch's [S, max_segs, 2] int32
+# trace buffer may take; a larger bucket is split into several launches
+TRACE_BUF_BYTES = 1 << 30
 
 
 def _mask_fp(mask) -> bytes | None:
@@ -131,8 +132,9 @@ def _round_slice(n: int, q: int = 1024) -> int:
 
 # ---------------------------------------------------------------------------
 # Device-resident extension: seeds -> units -> extents stay on the device;
-# the host sees a few counts, a downsampled copy of the length-sorted
-# bound array (to plan launch batches) and one download of the extents.
+# the host sees a few counts and one download of the extents.  K1 runs
+# one launch per phase and orientation over every unit slot (the kernel's
+# warps take the units longest first).
 # ---------------------------------------------------------------------------
 
 def _prep_units_dev(ar, br, ap, bp, cmp_, n: int, a_starts, b_starts,
@@ -142,8 +144,8 @@ def _prep_units_dev(ar, br, ap, bp, cmp_, n: int, a_starts, b_starts,
     The dedupe keeps the first of each identical-anchor group under a
     stable sort by (aread, bread, comp, apos_local, bpos_local), and the
     survivors in ascending original order.  Per orientation: the
-    bidirectional unit arrays ([fwd | rev], ap/bp in read-local frames),
-    the stable length-sort order and the sorted bound array."""
+    bidirectional unit arrays ([fwd | rev], ap/bp in read-local frames;
+    dead slots have alim = 0)."""
     dev = ar.device
     n_pad = ar.shape[0]
     idx = torch.arange(n_pad, device=dev)
@@ -193,57 +195,10 @@ def _prep_units_dev(ar, br, ap, bp, cmp_, n: int, a_starts, b_starts,
         u_bo = torch.cat([bp[sel], bp[sel]])
         u_rev = torch.cat([torch.zeros(n_pad, dtype=torch.bool, device=dev),
                            torch.ones(n_pad, dtype=torch.bool, device=dev)])
-        live2 = torch.cat([half, half])
-        bound = torch.where(live2, torch.minimum(u_alim, u_blim), INT32_MAX)
-        order = stable_argsort(bound)
-        parts.append(dict(m=m, u_ao=u_ao, u_bo=u_bo, u_alim=u_alim,
+        parts.append(dict(u_ao=u_ao, u_bo=u_bo, u_alim=u_alim,
                           u_blim=u_blim, u_rev=u_rev, ap_l=aps_l,
-                          bp_l=bps_l, ar_s=ar[sel], br_s=br[sel],
-                          order=order, sb=bound[order]))
+                          bp_l=bps_l, ar_s=ar[sel], br_s=br[sel]))
     return int(kb.sum()), parts[0], parts[1]
-
-
-def _slice_unit_batch(order, u_ao, u_bo, u_alim, u_blim, u_rev, lo: int,
-                      m: int, w: int):
-    """One launch batch's unit arrays: exactly units order[lo:lo+m],
-    padded to width w with dead lanes (alim = 0) that scatter to the
-    trash slot len(u_alim).  Unlike the reference's dynamic_slice, which
-    moves the window back when lo + w runs past the end (re-extending
-    earlier units and losing order[lo:lo+m]), nothing is clamped."""
-    N = order.shape[0]
-    if not (0 <= lo and lo + m <= N and m <= w):
-        raise ValueError(f"batch [{lo}, {lo}+{m}) of width {w} exceeds "
-                         f"the {N} unit slots")
-    dev = order.device
-    sel = torch.zeros(w, dtype=torch.int64, device=dev)
-    take = order[lo:lo + w]
-    sel[:take.shape[0]] = take
-    ok = torch.arange(w, device=dev) < m
-    alim = torch.where(ok, u_alim[sel], 0)
-    blim = torch.where(ok, u_blim[sel], 0)
-    tgt = torch.where(ok, sel, u_alim.shape[0])
-    return u_ao[sel], u_bo[sel], alim, blim, u_rev[sel], tgt
-
-
-def _scatter_unit_results(va_u, vb_u, vd_u, tgt, va, vb, vd):
-    """Scatter one batch's results into the unit slots (in place)."""
-    va_u[tgt] = va.to(va_u.dtype)
-    vb_u[tgt] = vb.to(vb_u.dtype)
-    vd_u[tgt] = vd.to(vd_u.dtype)
-
-
-def _scatter_unit_act(act_u, tgt, act):
-    act_u[tgt] = act.to(act_u.dtype)
-
-
-def _p2_order_dev(act_u, u_alim, u_blim):
-    """Phase-2 survivor ordering: still-active units first, stable by
-    bound.  Returns (order, sorted bound, survivor count)."""
-    n2 = u_alim.shape[0]
-    act = act_u[:n2] != 0
-    bound = torch.where(act, torch.minimum(u_alim, u_blim), INT32_MAX)
-    order = stable_argsort(bound)
-    return order, bound[order], int(act.sum())
 
 
 def _assemble_extents_dev(va_u, vb_u, vd_u, ap_l, bp_l, ar_s, br_s,
@@ -271,33 +226,6 @@ def _assemble_extents_dev(va_u, vb_u, vd_u, ap_l, bp_l, ar_s, br_s,
     return torch.stack(rows)[:, good]
 
 
-def _plan_batches_sampled(samples: np.ndarray, m_u: int, chunk_rows: int,
-                          s_max: int, area: int, clip: int,
-                          s_min: int = 1024,
-                          Q: int = SEED_PREP_Q) -> list:
-    """Equal-area launch batches from a downsampled ascending bound array
-    (samples[i] = sorted_bound[(i+1)*Q-1]): each batch of width w (a
-    power of two in [s_min, s_max]) has w * (top // chunk_rows + 1) <=
-    area.  Batching never changes kernel outputs (lanes are
-    independent).  Returns [(lo, m, w)]."""
-    out = []
-    ns = len(samples)
-    lo = 0
-    while lo < m_u:
-        w = s_max
-        while w > s_min:
-            j = min((lo + w - 1) // Q, ns - 1)
-            top = min(int(samples[j]), clip)
-            chunks = max(top // chunk_rows + 1, 1)
-            if w * chunks <= area:
-                break
-            w //= 2
-        m = min(w, m_u - lo)
-        out.append((lo, m, w))
-        lo += m
-    return out
-
-
 def _extend_all_dev(blk_a: ReadBlock, blk_b: ReadBlock,
                     blk_b_rc: ReadBlock, sd: dict, cfg: OverlapConfig,
                     stats: dict, device) -> list[dict]:
@@ -321,67 +249,33 @@ def _extend_all_dev(blk_a: ReadBlock, blk_b: ReadBlock,
     pb = quantize_bits(maxr + 1)
     m_d, part0, part1 = _prep_units_dev(ar, br, ap, bp, cmp_, n, a_st,
                                         b_st, rb=rb, pb=pb)
-    prep = {0: part0, 1: part1}
-    Q = SEED_PREP_Q
     stats["seeds"] += m_d
-    m_com = {c: prep[c]["m"] for c in (0, 1)}
-    samples = {c: prep[c]["sb"][Q - 1::Q].cpu().numpy() for c in (0, 1)}
-
-    kw = dict(R=cfg.bp_chunk, max_rows=cfg.max_read_len,
-              diff_cost=cfg.diff_cost, xdrop=cfg.xdrop, packed=True)
     a_words = _packed_words_of(blk_a, device)
-    bw_of = {0: _packed_words_of(blk_b, device),
-             1: _packed_words_of(blk_b_rc, device)}
     P1 = cfg.ext_phase1_rows
-    two_phase = 0 < P1 < kw["max_rows"]
-    s_max = max(cfg.seed_batch_dev, 1 << 16)
-
-    def launches(u, plan, b_words, kw_extra):
-        out = []
-        for lo, m, w in plan:
-            w = min(w, 2 * n_pad)
-            ao, bo, alim, blim, rev, tgt = _slice_unit_batch(
-                u["order"], u["u_ao"], u["u_bo"], u["u_alim"],
-                u["u_blim"], u["u_rev"], lo, m, w)
-            res = extend_wave_bp(a_words, b_words, ao, bo, alim, blim,
-                                 dirs=rev, **dict(kw, **kw_extra))
-            out.append((res, tgt))
-        return out
-
-    # phase 1 (or the only phase) for both orientations, then scatter
-    kw1 = dict(max_rows=P1, with_active=True) if two_phase else {}
-    acc = {}
-    for c in (0, 1):
-        plan1 = _plan_batches_sampled(samples[c], 2 * m_com[c],
-                                      cfg.bp_chunk, s_max,
-                                      AREA_CHUNKS_DEV,
-                                      P1 if two_phase else maxr)
-        acc[c] = [torch.zeros(2 * n_pad + 1, dtype=torch.int64,
-                              device=device) for _ in range(4)]
-        for res, tgt in launches(prep[c], plan1, bw_of[c], kw1):
-            _scatter_unit_results(*acc[c][:3], tgt, *res[:3])
-            if two_phase:
-                _scatter_unit_act(acc[c][3], tgt, res[4])
-    if two_phase:
+    two_phase = 0 < P1 < cfg.max_read_len
+    res = []
+    # one K1 launch per phase and orientation, over every unit slot
+    for u, blk in ((part0, blk_b), (part1, blk_b_rc)):
+        run = partial(extend_wave_bp, a_words, _packed_words_of(blk, device),
+                      u["u_ao"], u["u_bo"], dirs=u["u_rev"], R=cfg.bp_chunk,
+                      max_rows=cfg.max_read_len, diff_cost=cfg.diff_cost,
+                      xdrop=cfg.xdrop, packed=True)
+        if not two_phase:
+            res.append(run(u["u_alim"], u["u_blim"])[:3])
+            continue
+        r1 = run(u["u_alim"], u["u_blim"], max_rows=P1, with_active=True)
         # phase 2: re-run the still-active units from row 0 at full
         # depth (dead units' phase-1 results are final, so outputs equal
-        # a single full-depth pass)
-        for c in (0, 1):
-            order2, sb2, m2 = _p2_order_dev(acc[c][3], prep[c]["u_alim"],
-                                            prep[c]["u_blim"])
-            if not m2:
-                continue
-            plan2 = _plan_batches_sampled(sb2[Q - 1::Q].cpu().numpy(), m2,
-                                          cfg.bp_chunk, s_max,
-                                          AREA_CHUNKS_DEV, maxr)
-            for res, tgt in launches(dict(prep[c], order=order2), plan2,
-                                     bw_of[c], {}):
-                _scatter_unit_results(*acc[c][:3], tgt, *res[:3])
+        # a single full-depth pass); the others get alim = 0
+        act = r1[4]
+        r2 = run(torch.where(act, u["u_alim"], 0), u["u_blim"])
+        res.append([torch.where(act, x2, x1)
+                    for x1, x2 in zip(r1[:3], r2[:3])])
     pack16 = (max(blk_a.nreads, blk_b.nreads) < 65536 and maxr < 65536)
     out = []
-    for c in (0, 1):
-        u = prep[c]
-        d = _assemble_extents_dev(*acc[c][:3], u["ap_l"], u["bp_l"],
+    for c, u in enumerate((part0, part1)):
+        d = _assemble_extents_dev(*[x.to(torch.int64) for x in res[c]],
+                                  u["ap_l"], u["bp_l"],
                                   u["ar_s"], u["br_s"],
                                   pack16=pack16).cpu().numpy()
         if pack16:
@@ -499,6 +393,38 @@ def _n_segments_vec(abp: np.ndarray, aep: np.ndarray, tspace: int):
                     ).astype(np.int32)
 
 
+def _cap_segs(cfg: OverlapConfig) -> int:
+    return cfg.max_read_len // cfg.tspace + 2
+
+
+def _segs_bucket(expect: np.ndarray, cap_segs: int) -> np.ndarray:
+    """The trace buffer's segment count for each extent: the smallest
+    8 * 2^k >= expect + 2, capped at cap_segs (what _trace_launch picks
+    for a batch, applied to one extent)."""
+    need = np.minimum(expect.astype(np.int64) + 2, cap_segs)
+    b = np.full(need.shape, 8, np.int64)
+    while (b < need).any():
+        b = np.where(b < need, 2 * b, b)
+    return np.minimum(b, cap_segs)
+
+
+def _trace_plan(spans: np.ndarray, expect: np.ndarray, cap_segs: int,
+                buf_bytes: int = TRACE_BUF_BYTES) -> list:
+    """K2's launch plan: one launch per _segs_bucket value, split only
+    where its [S, max_segs, 2] int32 trace buffer would pass buf_bytes,
+    extents longest span first inside each (the kernel's warps take them
+    in that order).  Returns the launches' index arrays; together they
+    hold every extent exactly once."""
+    bucket = _segs_bucket(expect, cap_segs)
+    out = []
+    for ms in np.unique(bucket):
+        idx = np.nonzero(bucket == ms)[0]
+        idx = idx[np.argsort(-spans[idx], kind="stable")]
+        per = max(1, buf_bytes // (int(ms) * 8))
+        out += [idx[i:i + per] for i in range(0, len(idx), per)]
+    return out
+
+
 def _pack_trace(tr, expect, total_cap: int):
     """Compact a padded trace buffer [S, segs, 2] into a ragged concat
     [total_cap, 2] using the host-known per-row segment counts `expect`
@@ -536,7 +462,7 @@ def _trace_launch(pool_words, coords: dict, cfg: OverlapConfig,
     # are length-sorted); power-of-two buckets
     expect = _n_segments_vec(abp, aep, cfg.tspace)
     need = int(expect.max()) + 2
-    cap_segs = cfg.max_read_len // cfg.tspace + 2
+    cap_segs = _cap_segs(cfg)
     max_segs = 8
     while max_segs < min(need, cap_segs):
         max_segs *= 2
@@ -764,16 +690,22 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
             sink.append(LasColumns(h, payload, boffs))
 
     def launch_stream(units: dict, kernel=None):
-        """Sort units by span, area-batch them (pad each batch to a 1024
-        bucket) and launch every batch."""
+        """Launch a round: the bp trace (K2) one launch per segment-count
+        bucket (_trace_plan); the wide retries area-batched over the
+        span-sorted units, each batch padded to a 1024 bucket."""
         spans = units["aep"] - units["abp"]
-        order = np.argsort(spans, kind="stable")
-        batches = _area_batches(spans[order], cfg.tspace,
-                                max(S, 1 << 16), AREA_CHUNKS_DEV)
+        if kernel is None:
+            plan = [(sel, len(sel)) for sel in _trace_plan(
+                spans, _n_segments_vec(units["abp"], units["aep"],
+                                       cfg.tspace), _cap_segs(cfg))]
+        else:
+            order = np.argsort(spans, kind="stable")
+            plan = [(order[lo:lo + mb], min(w, _round_slice(mb, 1024)))
+                    for lo, mb, w in _area_batches(
+                        spans[order], cfg.tspace, max(S, 1 << 16),
+                        AREA_CHUNKS_DEV)]
         out = []
-        for lo, mb, w in batches:
-            sel = order[lo:lo + mb]
-            m = min(w, _round_slice(len(sel), 1024))
+        for sel, m in plan:
             chunk = {}
             for k in UKEYS:
                 fill = -1 if k == "mir" else 0

@@ -156,3 +156,22 @@ def unit_batch(rng: np.random.Generator, S: int, min_len: int = 100,
     return (A, B, np.array(ao, np.int32), np.array(bo, np.int32),
             np.array(alim, np.int32), np.array(blim, np.int32),
             np.array(rv, bool))
+
+
+def edge_units(rng: np.random.Generator, S: int, pool_len: int = 3001,
+               max_lim: int = 4000):
+    """Extension units whose windows run past both ends of a two-read
+    pool: origins within 40 bases of either end, both directions, limits
+    up to max_lim (so the kernels read clip-gathered words there).
+    Returns (A, B, aorigin, borigin, alim, blim, rev)."""
+    A = rng.integers(0, 4, pool_len).astype(np.uint8)
+    B = mutate(A, 0.1, rng)
+    near = np.concatenate([rng.integers(0, 40, S // 2),
+                           rng.integers(pool_len - 40, pool_len,
+                                        S - S // 2)])
+    ao = near.astype(np.int32)
+    bo = np.clip(near + rng.integers(-20, 20, S), 0, len(B)).astype(np.int32)
+    rv = np.arange(S) % 2 == 0
+    alim = rng.integers(1, max_lim, S).astype(np.int32)
+    blim = rng.integers(1, max_lim, S).astype(np.int32)
+    return A, B, ao, bo, alim, blim, rv

@@ -11,7 +11,7 @@ import torch
 
 from damar_tpu_torch.ops import wave_bp, wave_wide
 from damar_tpu_torch.ops.words import pack_bases
-from damar_tpu_torch.utils.sim import unit_batch
+from damar_tpu_torch.utils.sim import edge_units, unit_batch
 
 W = 128
 INF = 1 << 20
@@ -31,10 +31,23 @@ def _same(a, b):
         assert torch.equal(x.cpu(), y.cpu())
 
 
-def _ext(rng, S):
-    A, B, ao, bo, alim, blim, rv = unit_batch(rng, S)
+def _ext(rng, S, **kw):
+    A, B, ao, bo, alim, blim, rv = unit_batch(rng, S, **kw)
     return [torch.as_tensor(x) for x in (A, B, ao, bo, alim, blim)], \
         torch.as_tensor(rv)
+
+
+def _check_extend(dev, args, rv, max_rows):
+    """K1 (one launch, counted once) == its plain version."""
+    aw, bw = pack_bases(args[0]), pack_bases(args[1])
+    plain = wave_bp.extend_bp_plain(aw, bw, *args[2:], rv, 128, max_rows,
+                                    5, 60)
+    before = wave_bp.extend_wave_bp.launches
+    kern = wave_bp.extend_bp_kernel(
+        aw.to(dev), bw.to(dev), *(x.to(dev) for x in args[2:]), rv.to(dev),
+        128, max_rows, 5, 60)
+    assert wave_bp.extend_wave_bp.launches == before + 1
+    _same(plain, kern)
 
 
 @pytest.mark.cuda
@@ -45,31 +58,89 @@ def test_extend_kernel_matches_plain(dev, max_rows, dirs):
     args, rv = _ext(np.random.default_rng(max_rows), 2000)
     if dirs != "mixed":
         rv = torch.full_like(rv, dirs == "rev")
-    aw, bw = pack_bases(args[0]), pack_bases(args[1])
-    plain = wave_bp.extend_bp_plain(aw, bw, *args[2:], rv, 128, max_rows,
-                                    5, 60)
-    before = wave_bp.extend_wave_bp.launches
-    kern = wave_bp.extend_bp_kernel(aw.to(dev), bw.to(dev),
-                                    *(x.to(dev) for x in args[2:]),
-                                    rv.to(dev), 128, max_rows, 5, 60)
-    assert wave_bp.extend_wave_bp.launches == before + 1
-    _same(plain, kern)
+    _check_extend(dev, args, rv, max_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["longest_first", "random"])
+def test_extend_mixed_lengths_one_launch(dev, order):
+    """Units of 1 to ~20,000 rows in one launch, laid out longest first
+    or in random order: the persistent queue hands them out longest
+    first either way, and no output depends on the layout."""
+    args, rv = _ext(np.random.default_rng(11), 700, min_len=1,
+                    max_len=20_000)
+    alim, blim = args[4], args[5]
+    assert int(alim.max()) > 10_000 and int(alim.min()) < 50
+    if order == "longest_first":
+        perm = torch.argsort(torch.minimum(alim, blim), descending=True)
+    else:
+        perm = torch.as_tensor(np.random.default_rng(3).permutation(700))
+    args = args[:2] + [x[perm] for x in args[2:]]
+    _check_extend(dev, args, rv[perm], 65536)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 33, 129, 1031])
+def test_extend_odd_unit_counts(dev, S):
+    """S = 1 and S not a multiple of a warp or of the block."""
+    args, rv = _ext(np.random.default_rng(S), S)
+    _check_extend(dev, args, rv, 65536)
+
+
+@pytest.mark.cuda
+def test_extend_windows_past_pool_edges(dev):
+    """Forward and reverse units whose windows run past both ends of the
+    pool (word reads across the clip)."""
+    A, B, ao, bo, alim, blim, rv = edge_units(np.random.default_rng(9), 64)
+    args = [torch.as_tensor(x) for x in (A, B, ao, bo, alim, blim)]
+    _check_extend(dev, args, torch.as_tensor(rv), 65536)
+
+
+def _trace_args(rng, S, offsets=False, **kw):
+    """Trace extents from a unit batch: starts 0 and offsets at the
+    origins, or (offsets) each origin split into a start and a small
+    offset, both off word boundaries."""
+    A, B, ao, bo, alim, blim, _ = unit_batch(rng, S, **kw)
+    alim = np.minimum(alim, len(A) - ao).astype(np.int32)
+    blim = np.minimum(blim, len(B) - bo).astype(np.int32)
+    abp, bbp = ao, bo
+    if offsets:
+        abp = np.minimum(rng.integers(1, 90, len(ao)), ao).astype(np.int32)
+        bbp = np.minimum(rng.integers(1, 90, len(bo)), bo).astype(np.int32)
+    return [torch.as_tensor(x) for x in (A, B, ao - abp, bo - bbp, abp, bbp,
+                                         alim, blim)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tspace,max_segs", [(100, 32), (126, 24),
                                              (250, 12)])
 def test_trace_kernel_matches_plain(dev, tspace, max_segs):
-    A, B, ao, bo, alim, blim, _ = unit_batch(np.random.default_rng(tspace),
-                                             2000)
-    alim = np.minimum(alim, len(A) - ao).astype(np.int32)
-    blim = np.minimum(blim, len(B) - bo).astype(np.int32)
-    z = np.zeros(len(ao), np.int32)
-    args = [torch.as_tensor(x) for x in (A, B, z, z, ao, bo, alim, blim)]
+    args = _trace_args(np.random.default_rng(tspace), 2000)
     want = wave_bp.trace_wave_bp(*args, tspace=tspace, max_segs=max_segs)
     got = wave_bp.trace_wave_bp(*(x.to(dev) for x in args), tspace=tspace,
                                 max_segs=max_segs)
     _same(want, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tspace,max_segs,S", [(100, 64, 517),
+                                               (126, 48, 33),
+                                               (250, 24, 1),
+                                               (100, 6, 400)])
+def test_trace_offsets_odd_counts_and_cap(dev, tspace, max_segs, S):
+    """Starts off word boundaries, S not a multiple of a warp, and (the
+    last case) a bucket at its cap: most extents need more segments than
+    max_segs and stop there."""
+    args = _trace_args(np.random.default_rng(S + tspace), S, offsets=True,
+                       max_len=6000)
+    before = wave_bp.trace_wave_bp.launches
+    want = wave_bp.trace_wave_bp(*args, tspace=tspace, max_segs=max_segs)
+    got = wave_bp.trace_wave_bp(*(x.to(dev) for x in args), tspace=tspace,
+                                max_segs=max_segs)
+    assert wave_bp.trace_wave_bp.launches == before + 1
+    _same(want, got)
+    if max_segs == 6:
+        assert int((want[1] == max_segs).sum()) > S // 2
 
 
 def _dp_inputs(seed, S, R, track):

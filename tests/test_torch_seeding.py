@@ -58,7 +58,7 @@ def test_self_pair(reads, masked):
                     else jnp.asarray(ma), **kw)
     got = seeding.find_seeds_canonical_dev(
         pb, pb, OverlapConfig(), mask_a=None if ma is None
-        else torch.as_tensor(ma), **kw)
+        else torch.as_tensor(ma), device="cpu", **kw)
     _compare(ref, got)
 
 
@@ -74,7 +74,8 @@ def test_distinct_pair(reads, masked):
     t = lambda m: None if m is None else torch.as_tensor(m)  # noqa: E731
     ref = ref_seeds(ra, rb, RefConfig(), mask_a=j(ma), mask_b=j(mb), **kw)
     got = seeding.find_seeds_canonical_dev(pa, pb, OverlapConfig(),
-                                           mask_a=t(ma), mask_b=t(mb), **kw)
+                                           mask_a=t(ma), mask_b=t(mb),
+                                           device="cpu", **kw)
     _compare(ref, got)
 
 
@@ -85,7 +86,8 @@ def test_truncated_buffers_match(reads):
     kw = dict(upper_only=True, hit_cap=1 << 17, seed_cap=64,
               self_pair=True, raw_hint=1 << 17)
     ref = ref_seeds(rb, rb, RefConfig(), **kw)
-    got = seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(), **kw)
+    got = seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(),
+                                           device="cpu", **kw)
     assert got["overflow"]
     _compare(ref, got)
 
@@ -94,8 +96,32 @@ def test_unported_paths_raise(reads):
     pb = block_from_reads(reads)
     with pytest.raises(NotImplementedError):
         seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(bias=True),
-                                         self_pair=True)
+                                         self_pair=True, device="cpu")
     with pytest.raises(NotImplementedError):
         seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(),
                                          self_pair=True, hit_cap=1 << 28,
-                                         raw_hint=1 << 28)
+                                         raw_hint=1 << 28, device="cpu")
+
+
+def test_device_has_no_default(reads):
+    """Without dev_arrays the caller names the device: leaving it out
+    raises instead of running on the host; dev_arrays carry their own
+    device, and a device that contradicts them raises."""
+    pb = block_from_reads(reads[:6])
+    with pytest.raises(TypeError, match="device"):
+        seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(),
+                                         self_pair=True)
+    with pytest.raises(TypeError):   # keyword-only
+        seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(), None,
+                                         None, True, 1 << 22, 1 << 15,
+                                         None, None, None, True, None,
+                                         None, "cpu")
+    arrs = tuple(torch.as_tensor(x) for x in (pb.bases, pb.read_id,
+                                              pb.bases, pb.read_id))
+    got = seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(),
+                                           self_pair=True, dev_arrays=arrs)
+    assert got["aread"].device.type == "cpu"
+    with pytest.raises(ValueError, match="dev_arrays"):
+        seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(),
+                                         self_pair=True, dev_arrays=arrs,
+                                         device="meta")
