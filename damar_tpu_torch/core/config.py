@@ -1,9 +1,9 @@
 """Overlap phase configuration: the fields of damar_tpu.core.config's
 OverlapConfig that the port reads, with the same defaults (daligner
 -k14 -w6 -h35 -e.70 -l1000 -s100).  The reference's kernel switches
-(use_pallas, dp_kernel, the host launch width seed_batch) have no
-counterpart: the port has one route, the bit-parallel ("bp") kernels on
-the device."""
+(use_pallas, dp_kernel) and launch widths (seed_batch, seed_batch_dev)
+have no counterpart: the port has one route, the bit-parallel ("bp")
+kernels on the device."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -25,7 +25,6 @@ class OverlapConfig:
     # --- kernel shape parameters (not in the reference) ---
     band_width: int = 128       # wide-DP band lanes (the wide trace tier)
     xdrop: int = 60             # X-drop termination threshold (diff units)
-    seed_batch_dev: int = 8192  # device-kernel launch width
     max_read_len: int = 65536   # static bound on read length in kernels
     diff_cost: int = 5          # score = antidiag - diff_cost * diffs
     bp_chunk: int = 128         # bp extension rows between recenters

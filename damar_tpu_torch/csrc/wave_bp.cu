@@ -30,9 +30,10 @@
 //    order the driver lays out so), so a warp's lanes have similar
 //    lengths and the shortest items fill the tail.  Units are
 //    independent, so the order changes no output.
-//  * Characters come by word, ahead of use.  A CharStream holds the
-//    next pool words in registers, issues each load two 16-char groups
-//    (32 rows) before it is needed, and hands out 16 chars at a time
+//  * Characters come by word, ahead of use.  A CharStream (common.cuh,
+//    shared with dp_rows.cu) holds the next pool words in registers,
+//    issues each load two 16-char groups (32 rows) before it is
+//    needed, and hands out 16 chars at a time
 //    aligned to the rows (a funnel shift of two words, then a 2-bit
 //    group reversal for reverse units), so a row extracts its char with
 //    a constant shift.  The Peq planes of a chunk or segment are built
@@ -46,44 +47,22 @@
 // Exactness points kept: first-min and first-max ties, u32 wraparound,
 // the guarded 32-bit shift in low_mask, jnp.clip's max-then-min order.
 //
-// The per-unit functions (extend_unit, trace_extent and what they call)
-// also compile as host C++ when the intrinsics are given host
+// The per-unit functions (extend_unit, trace_extent and what they call,
+// with common.cuh) also compile as host C++ when the intrinsics are given host
 // definitions: everything CUDA-only is under __CUDACC__.
 // tests/test_torch_wave_bp_host.py builds them so and holds them against
 // the plain versions on the CPU.
-#include <cstdint>
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#endif
+#include "common.cuh"
 
 namespace {
 
 constexpr int BW = 32;
 constexpr int CTR = 16;
-constexpr int INF_I = 1 << 20;
 constexpr int NEG_I = -(1 << 20);
 constexpr uint32_t NOT1 = 0xFFFFFFFEu;
 constexpr uint32_t VN0 = (1u << (CTR + 1)) - 1u;
 constexpr uint32_t VP0 = 0xFFFFFFFFu ^ VN0;
 constexpr int THREADS = 128;
-constexpr int WARP = 32;
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  // jnp.clip order: max first, then min
-  x = x > lo ? x : lo;
-  return x < hi ? x : hi;
-}
-
-__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ w,
-                                              int n, int i) {
-  return __ldg(w + clampi(i, 0, n - 1));
-}
-
-// Reverse the 16 2-bit groups of a word.
-__device__ __forceinline__ uint32_t rev16(uint32_t g) {
-  g = __brev(g);
-  return ((g >> 1) & 0x55555555u) | ((g & 0x55555555u) << 1);
-}
 
 // Bits 0, 2, ..., 30 of x packed into bits 0..15.
 __device__ __forceinline__ uint32_t even_bits(uint32_t x) {
@@ -93,44 +72,6 @@ __device__ __forceinline__ uint32_t even_bits(uint32_t x) {
   x = (x | (x >> 4)) & 0x00FF00FFu;
   return (x | (x >> 8)) & 0x0000FFFFu;
 }
-
-// The chars at pool positions p, p+1, ... (forward) or p, p-1, ...
-// (reverse), 16 per call with stream char k at bits [2k, 2k+2).
-struct CharStream {
-  const uint32_t* w;
-  int n, fi, step;
-  uint32_t sh, carry, q0, q1;
-  bool rev;
-
-  __device__ __forceinline__ void start(const uint32_t* words, int nwords,
-                                        int p, bool reverse) {
-    w = words;
-    n = nwords;
-    rev = reverse;
-    step = reverse ? -1 : 1;
-    const int lo = reverse ? p - 15 : p;  // lowest position of group 0
-    const int wi = lo >> 4;               // arithmetic: floors
-    sh = 2u * static_cast<uint32_t>(lo & 15);
-    // group j reads words wi + step*j and wi + step*j + 1: one is shared
-    // with group j - 1 (carry), one is new (q0, loaded ahead as q1)
-    carry = load_word(w, n, reverse ? wi + 1 : wi);
-    fi = reverse ? wi : wi + 1;
-    q0 = load_word(w, n, fi);
-    q1 = load_word(w, n, fi + step);
-  }
-
-  __device__ __forceinline__ uint32_t next16() {
-    const uint32_t nw = q0;
-    q0 = q1;
-    q1 = load_word(w, n, fi + 2 * step);
-    fi += step;
-    const uint32_t lo = rev ? nw : carry;
-    const uint32_t hi = rev ? carry : nw;
-    carry = nw;
-    const uint32_t g = __funnelshift_r(lo, hi, sh);
-    return rev ? rev16(g) : g;
-  }
-};
 
 __device__ __forceinline__ uint32_t low_mask(int m) {
   return m >= 32 ? 0xFFFFFFFFu : (1u << m) - 1u;
@@ -304,11 +245,6 @@ __device__ void extend_unit(const ExtParams& P, int ao, int bo, int alim,
   act_o = active;
 }
 
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
 // 16 (or, with GUARD, the first n) rows of a K2 segment.
 template <bool GUARD>
 __device__ __forceinline__ void trace_rows16(
@@ -462,27 +398,6 @@ __global__ void __launch_bounds__(THREADS) bp_trace_kernel(
   }
 }
 
-// Persistent grid: as many blocks as fit on the card at once, but no
-// more than the work needs.  The fit is fixed per kernel and device, so
-// it is asked once (the occupancy query costs host time on every launch
-// otherwise, while the stream may stand idle).
-template <typename K>
-int grid_for(K kernel, int S) {
-  static int fit_of[64] = {0};  // per device ordinal, one table per kernel
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& fit = fit_of[dev & 63];
-  if (fit == 0) {
-    int sms = 1, per_sm = 1;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                  0);
-    fit = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const int need = (S + THREADS - 1) / THREADS;
-  return fit < need ? fit : need;
-}
-
 #endif  // __CUDACC__
 
 }  // namespace
@@ -499,7 +414,9 @@ extern "C" int bp_extend_launch(
     ExtParams P{static_cast<const uint32_t*>(aw),
                 static_cast<const uint32_t*>(bw), na, nb, R, max_rows,
                 diff_cost, xdrop};
-    bp_extend_kernel<<<grid_for(bp_extend_kernel, S), THREADS, 0,
+    const int grid = grid_for<bp_extend_kernel>(THREADS,
+                                                (S + THREADS - 1) / THREADS);
+    bp_extend_kernel<<<grid, THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         P, static_cast<const int32_t*>(aorigin),
         static_cast<const int32_t*>(borigin),
@@ -520,7 +437,9 @@ extern "C" int bp_trace_launch(
   if (S > 0) {
     TraceParams P{static_cast<const uint32_t*>(aw),
                   static_cast<const uint32_t*>(bw), na, nb, tspace, max_segs};
-    bp_trace_kernel<<<grid_for(bp_trace_kernel, S), THREADS, 0,
+    const int grid = grid_for<bp_trace_kernel>(THREADS,
+                                               (S + THREADS - 1) / THREADS);
+    bp_trace_kernel<<<grid, THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
         P, static_cast<const int32_t*>(astart),
         static_cast<const int32_t*>(bstart),

@@ -39,6 +39,8 @@ SIGNATURES = {
                          P, P, P, P, P, P],
     "bp_trace_launch": [P, I, P, I, P, P, P, P, P, P, I, I, I,
                         P, P, P, P, P],
+    "wide_trace_launch": [P, I, P, I, P, P, P, P, P, P, I, I, I,
+                          P, P, P, P, P],
     "dp_rows_launch": [P, P, I, P, I, P, P, P, P, P, P,
                        P, P, P, P,
                        P, P, P, P, P, P, P,

@@ -5,14 +5,20 @@ wrapper.  The wide band is the last retry tier of the trace pass: it
 forces through extents whose alignment drifts beyond the reach of the
 32-diagonal bit-parallel band.
 
-Kernel (CUDA C++ in damar_tpu_torch/csrc/dp_rows.cu):
-  K3 dp_rows_kernel  replaces _dp_rows_kernel (wave_pallas.py:43)
-One block of W threads per seed, one lane per thread, with the
-reference's log-step prefix-min through shared memory; track_best and
-recenter are template flags.  It is bound by the scan's block barriers
-(14 per row) and integer latency.  Beside it, the plain torch version
-over [S, W] tensors; dp_rows takes it only for CPU tensors.  The wide
-extension wrapper (extend_wave_pl) is not ported yet.
+Kernels (CUDA C++ in damar_tpu_torch/csrc/dp_rows.cu), both in place of
+_dp_rows_kernel (wave_pallas.py:43):
+  wide_trace_kernel  the whole trace pass of trace_wave_pl (:411) in one
+                     launch: every segment of every extent, with its
+                     commit, one warp per extent
+  dp_rows_kernel     R rows of a batch of bands, trace mode or
+                     track_best + recenter (the chunk form, for the wide
+                     extension)
+One warp holds a band, four lanes a thread in registers; a row's
+prefix-min is a warp-shuffle scan with no barrier (the file's header
+says what bounds them).  Beside each kernel, its plain torch version:
+trace_wave_plain (the reference's segment loop, trace_wave_steps, over
+dp_rows_plain) and dp_rows_plain; the wrappers take them only for CPU
+tensors.  The wide extension wrapper (extend_wave_pl) is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +32,19 @@ INF_I = 1 << 20
 
 def _as_col(x):
     return x.reshape(-1) if x.dim() == 2 and x.shape[1] == 1 else x
+
+
+def prefix_min(u):
+    """The reference's log-step prefix-min along dim 1 with its INF_I
+    fill (wave_pallas.py:86-91).  Lane for lane it equals
+    min(INF_I, cummin(u)), which the kernels compute."""
+    lane = torch.arange(u.shape[1], device=u.device)
+    s = 1
+    while s < u.shape[1]:
+        us = torch.where(lane >= s, torch.roll(u, s, dims=1), INF_I)
+        u = torch.minimum(u, us)
+        s *= 2
+    return u
 
 
 def dp_rows_plain(D, a_chars, b_tile, vb_base, p_base, blim, rows_limit,
@@ -72,12 +91,7 @@ def dp_rows_plain(D, a_chars, b_tile, vb_base, p_base, blim, rows_limit,
         sub = torch.where(diag_valid, (bcmp != x).to(torch.int64), INF_I)
         Dl = torch.cat([Ds[:, 1:], torch.full_like(Ds[:, :1], INF_I)],
                        dim=1)
-        u = torch.minimum(Ds + sub, Dl + 1) - lane
-        s = 1
-        while s < W:
-            us = torch.where(lane >= s, torch.roll(u, s, dims=1), INF_I)
-            u = torch.minimum(u, us)
-            s *= 2
+        u = prefix_min(torch.minimum(Ds + sub, Dl + 1) - lane)
         Dn = torch.where(lane_valid, u + lane, INF_I)
         Ds = torch.where(row_active, Dn, Ds)
         if track_best:
@@ -157,7 +171,7 @@ def dp_rows_kernel(D, a_chars, b_tile, vb_base, p_base, blim, rows_limit,
         drift_o.data_ptr(), S, R, W, diff_cost, xdrop, int(track_best),
         int(recenter), _cuda.stream_ptr(D))
     _cuda.check(err, "dp_rows_kernel")
-    dp_rows.launches += 1
+    dp_rows.launches += S > 0           # no bands: nothing launched
     return (D_o, act_o, *trk_o, drift_o)
 
 
@@ -200,22 +214,30 @@ def _first_argmin(x):
     return torch.where(x == m, lane, x.shape[1]).min(dim=1).values
 
 
-def trace_wave(a_bases, b_bases, astart, bstart, abpos, bbpos, alim, blim,
-               tspace: int = 100, W: int = 128, max_segs: int = 660,
-               packed: bool = False):
-    """Wide-band trace pass (damar_tpu trace_wave_pl): every step
-    advances each live seed one segment to its next absolute tspace
-    boundary through dp_rows, commits (diffs, bspan) at the first
-    min-distance column (the known end for the last segment) and resets
-    the band there.  Returns (trace [S, max_segs, 2], nseg, dsum)
-    int32."""
+def _segments(abpos, alim, tspace: int):
+    """Segments of each extent: the tspace boundaries of A it spans."""
+    a0 = abpos.to(torch.int64)
+    n = (torch.div(a0 + alim - 1, tspace, rounding_mode="floor")
+         - torch.div(a0, tspace, rounding_mode="floor") + 1)
+    return torch.where(alim > 0, n, 0)
+
+
+def trace_wave_steps(a_words, b_words, astart, bstart, abpos, bbpos, alim,
+                     blim, tspace: int, max_segs: int, rows_fn,
+                     W: int = 128):
+    """The reference's wide trace loop (trace_wave_pl) over packed pool
+    words, with the DP rows function as an argument (dp_rows_plain, or
+    dp_rows_kernel for one launch per step): every step advances each
+    live extent one segment to its next absolute tspace boundary,
+    commits (diffs, bspan) at the first min-distance column (the known
+    end for the last segment) and resets the band there.  The step count
+    is the most segments of any extent, read once before the loop.
+    Returns (trace [S, max_segs, 2], nseg, dsum) int32."""
     S = abpos.shape[0]
     dev = abpos.device
     CTR = W // 2
     i64 = lambda x: x.to(torch.int64)  # noqa: E731
     lane = torch.arange(W, device=dev)
-    a_words = a_bases if packed else pack_bases(a_bases)
-    b_words = b_bases if packed else pack_bases(b_bases)
     abpos, alim, blim = i64(abpos), i64(alim), i64(blim)
     aorigin = i64(astart) + abpos
     borigin = i64(bstart) + i64(bbpos)
@@ -225,7 +247,8 @@ def trace_wave(a_bases, b_bases, astart, bstart, abpos, bbpos, alim, blim,
     boff, done, nseg, prev_vb, dsum = z, z, z, z, z
     trace = torch.zeros((S, max_segs, 2), dtype=torch.int64, device=dev)
     rows_idx = torch.arange(S, device=dev)
-    while bool((done < alim).any()):
+    steps = int(_segments(abpos, alim, tspace).max()) if S else 0
+    for _ in range(steps):
         live = done < alim
         a = abpos + done
         nxt = (torch.div(a, tspace, rounding_mode="floor") + 1) * tspace - a
@@ -233,7 +256,7 @@ def trace_wave(a_bases, b_bases, astart, bstart, abpos, bbpos, alim, blim,
         a_chars = gather_packed(a_words, aorigin, done, tspace, False)
         b_tile = gather_packed(b_words, borigin, done + boff - CTR,
                                tspace + W, False)
-        D = dp_rows(D, _pad_cols(a_chars, 128), _pad_cols(b_tile, 128),
+        D = rows_fn(D, _pad_cols(a_chars, 128), _pad_cols(b_tile, 128),
                     done + 1 - CTR + boff, z, blim, seg_rows, live,
                     z, z, z, z, R=tspace, W=W, track_best=False)[0]
         D = i64(D)
@@ -261,4 +284,70 @@ def trace_wave(a_bases, b_bases, astart, bstart, abpos, bbpos, alim, blim,
     return i32(trace), i32(nseg), i32(dsum)
 
 
+def trace_wave_plain(a_words, b_words, astart, bstart, abpos, bbpos, alim,
+                     blim, tspace: int, max_segs: int):
+    """Plain torch wide trace: trace_wave_steps over dp_rows_plain (same
+    contract as trace_wide_kernel)."""
+    return trace_wave_steps(a_words, b_words, astart, bstart, abpos, bbpos,
+                            alim, blim, tspace, max_segs, dp_rows_plain)
+
+
+def trace_wide_kernel(a_words, b_words, astart, bstart, abpos, bbpos, alim,
+                      blim, tspace: int, max_segs: int):
+    """Launch wide_trace_kernel on the current CUDA stream over all S
+    extents: returns (trace [S, max_segs, 2], nseg, dsum) int32.  Warps
+    take the extents in input order, so a caller that lays them out
+    longest first fills the card best."""
+    if tspace <= 0 or max_segs <= 0:
+        raise ValueError(f"trace_wide_kernel: tspace {tspace} and "
+                         f"max_segs {max_segs} must be positive")
+    lib = _cuda.lib()
+    S = abpos.shape[0]
+    dev = abpos.device
+    c = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    aw, bw = c(a_words), c(b_words)
+    ins = [c(x) for x in (astart, bstart, abpos, bbpos, alim, blim)]
+    for t in (aw, bw, *ins):
+        if t.device != dev:
+            raise ValueError("trace_wide_kernel: all tensors must share "
+                             "one CUDA device")
+    for t in ins:
+        if tuple(t.shape) != (S,):
+            raise ValueError(f"trace_wide_kernel: per-extent vectors must "
+                             f"be [{S}], got {tuple(t.shape)}")
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    # the kernel writes segments [0, nseg) only
+    trace = torch.zeros((S, max_segs, 2), dtype=torch.int32, device=dev)
+    nseg = torch.empty(S, dtype=torch.int32, device=dev)
+    dsum = torch.empty(S, dtype=torch.int32, device=dev)
+    err = lib.wide_trace_launch(
+        aw.data_ptr(), aw.shape[0], bw.data_ptr(), bw.shape[0],
+        *[t.data_ptr() for t in ins], S, tspace, max_segs,
+        counter.data_ptr(), trace.data_ptr(), nseg.data_ptr(),
+        dsum.data_ptr(), _cuda.stream_ptr(abpos))
+    _cuda.check(err, "wide_trace_kernel")
+    trace_wave.launches += S > 0        # no extents: nothing launched
+    return trace, nseg, dsum
+
+
+def trace_wave(a_bases, b_bases, astart, bstart, abpos, bbpos, alim, blim,
+               tspace: int = 100, W: int = 128, max_segs: int = 660,
+               packed: bool = False):
+    """Wide-band trace pass (damar_tpu trace_wave_pl) over extents: on a
+    CUDA device one wide_trace_kernel launch, on the CPU
+    trace_wave_plain.  packed: a_bases/b_bases are already pack_bases
+    words.  Returns (trace [S, max_segs, 2], nseg, dsum) int32."""
+    if W != 128:
+        raise ValueError("trace_wave supports W = 128 only")
+    if abpos.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {abpos.device}")
+    a_words = a_bases if packed else pack_bases(a_bases)
+    b_words = b_bases if packed else pack_bases(b_bases)
+    run = (trace_wide_kernel if abpos.device.type == "cuda"
+           else trace_wave_plain)
+    return run(a_words, b_words, astart, bstart, abpos, bbpos, alim, blim,
+               tspace, max_segs)
+
+
+trace_wave.launches = 0
 trace_wave.takes_packed = True

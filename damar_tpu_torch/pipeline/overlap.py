@@ -44,12 +44,9 @@ from damar_tpu_torch.ops.words import pack_bases
 
 EXT_KEYS = ("aread", "bread", "abpos", "aepos", "bbpos", "bepos",
             "diffs")
-# wide retry round (K3): seed-chunks per device launch (width x
-# loop-iterations), the bulk of short units in wide launches, long tails
-# in narrow ones
-AREA_CHUNKS_DEV = 1 << 19
-# bp trace (K2): the most bytes one launch's [S, max_segs, 2] int32
-# trace buffer may take; a larger bucket is split into several launches
+# trace rounds (K2, and K3 for the wide retries): the most bytes one
+# launch's [S, max_segs, 2] int32 trace buffer may take; a larger bucket
+# is split into several launches
 TRACE_BUF_BYTES = 1 << 30
 
 
@@ -364,29 +361,6 @@ def dedupe_extents(ext: dict, min_len: int,
     return _take_extents(e, np.nonzero(~drop)[0])
 
 
-def _area_batches(sorted_lens: np.ndarray, chunk_rows: int, s_max: int,
-                  area_chunks: int, s_min: int = 1024) -> list:
-    """Variable-width launch batches over an ascending length-sorted
-    stream: width w (a power of two in [s_min, s_max]) with
-    w * (batch_max_len // chunk_rows + 1) <= area_chunks.  Returns
-    [(lo, m, w)]."""
-    n = len(sorted_lens)
-    out = []
-    lo = 0
-    while lo < n:
-        w = s_max
-        while w > s_min:
-            top = sorted_lens[min(lo + w, n) - 1]
-            chunks = max(int(top) // chunk_rows + 1, 1)
-            if w * chunks <= area_chunks:
-                break
-            w //= 2
-        m = min(w, n - lo)
-        out.append((lo, m, w))
-        lo += m
-    return out
-
-
 def _n_segments_vec(abp: np.ndarray, aep: np.ndarray, tspace: int):
     return np.where(aep > abp,
                     (aep - 1) // tspace - abp // tspace + 1, 0
@@ -410,7 +384,8 @@ def _segs_bucket(expect: np.ndarray, cap_segs: int) -> np.ndarray:
 
 def _trace_plan(spans: np.ndarray, expect: np.ndarray, cap_segs: int,
                 buf_bytes: int = TRACE_BUF_BYTES) -> list:
-    """K2's launch plan: one launch per _segs_bucket value, split only
+    """A trace round's launch plan (the bp trace K2 and the wide retries
+    K3 alike): one launch per _segs_bucket value, split only
     where its [S, max_segs, 2] int32 trace buffer would pass buf_bytes,
     extents longest span first inside each (the kernel's warps take them
     in that order).  Returns the launches' index arrays; together they
@@ -587,7 +562,6 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
     sb = blk_b.starts.astype(np.int64)
     alen = blk_a.rlen.astype(np.int32)
     blen = blk_b.rlen.astype(np.int32)
-    S = cfg.seed_batch_dev
     pool, OA, OBF, OBC, OAR = _trace_pool(blk_a, blk_b, blk_b_rc,
                                           blk_a_rc, emit_mirrors, device)
 
@@ -651,10 +625,9 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
 
     def emit(chunk, res, retry_sink=None):
         """Append one trace batch's surviving records as .las columns;
-        rows with mir < 0 are batch padding."""
+        send the others to the retry sink, or count them as dropped."""
         offs_t, okv, packed, dsum = res
-        okv = okv & (chunk["mir"] >= 0)
-        bad = np.nonzero(~okv & (chunk["mir"] >= 0))[0]
+        bad = np.nonzero(~okv)[0]
         if len(bad):
             if retry_sink is not None:
                 retry_sink.append({k: v[bad] for k, v in chunk.items()})
@@ -690,28 +663,15 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
             sink.append(LasColumns(h, payload, boffs))
 
     def launch_stream(units: dict, kernel=None):
-        """Launch a round: the bp trace (K2) one launch per segment-count
-        bucket (_trace_plan); the wide retries area-batched over the
-        span-sorted units, each batch padded to a 1024 bucket."""
-        spans = units["aep"] - units["abp"]
-        if kernel is None:
-            plan = [(sel, len(sel)) for sel in _trace_plan(
-                spans, _n_segments_vec(units["abp"], units["aep"],
-                                       cfg.tspace), _cap_segs(cfg))]
-        else:
-            order = np.argsort(spans, kind="stable")
-            plan = [(order[lo:lo + mb], min(w, _round_slice(mb, 1024)))
-                    for lo, mb, w in _area_batches(
-                        spans[order], cfg.tspace, max(S, 1 << 16),
-                        AREA_CHUNKS_DEV)]
+        """Launch a round (the bp trace K2, or with `kernel` the wide
+        retries K3): one launch per segment-count bucket (_trace_plan),
+        extents longest first."""
+        plan = _trace_plan(units["aep"] - units["abp"],
+                           _n_segments_vec(units["abp"], units["aep"],
+                                           cfg.tspace), _cap_segs(cfg))
         out = []
-        for sel, m in plan:
-            chunk = {}
-            for k in UKEYS:
-                fill = -1 if k == "mir" else 0
-                buf = np.full(m, fill, units[k].dtype)
-                buf[:len(sel)] = units[k][sel]
-                chunk[k] = buf
+        for sel in plan:
+            chunk = {k: units[k][sel] for k in UKEYS}
             out.append((_trace_launch(pool, chunk, cfg, kernel=kernel),
                         chunk))
         return out

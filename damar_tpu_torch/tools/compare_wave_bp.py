@@ -64,10 +64,10 @@ def load_earlier(src: Path) -> ctypes.CDLL:
 
 
 def area_plan(sorted_bound: np.ndarray, chunk: int, clip: int) -> list:
-    """The earlier driver's equal-area K1 batches over ascending bounds:
-    width w (a power of two in [1024, 65536]) with
-    w * (min(top, clip) // chunk + 1) <= 2^19 (from exact bounds, where
-    that driver sampled every 512th)."""
+    """The earlier driver's equal-area batches over ascending bounds (K1)
+    or spans (K2, with no clip): width w (a power of two in [1024,
+    65536]) with w * (min(top, clip) // chunk + 1) <= 2^19 (for K1 from
+    exact bounds, where that driver sampled every 512th)."""
     out, lo, n = [], 0, len(sorted_bound)
     while lo < n:
         w = 1 << 16
@@ -177,8 +177,7 @@ def compare(src: Path, dev) -> dict:
     tr_old = torch.zeros((S2, ms2, 2), dtype=torch.int32, device=dev)
     cnt_old = [torch.empty(S2, dtype=torch.int32, device=dev)
                for _ in range(2)]
-    plan2 = [(lo, m) for lo, m, _ in ov._area_batches(
-        spans[asc.cpu().numpy()], cfg.tspace, 1 << 16, ov.AREA_CHUNKS_DEV)]
+    plan2 = area_plan(spans[asc.cpu().numpy()], cfg.tspace, 1 << 30)
 
     def k2_new():
         return wave_bp.trace_bp_kernel(*a2)

@@ -175,3 +175,70 @@ def edge_units(rng: np.random.Generator, S: int, pool_len: int = 3001,
     alim = rng.integers(1, max_lim, S).astype(np.int32)
     blim = rng.integers(1, max_lim, S).astype(np.int32)
     return A, B, ao, bo, alim, blim, rv
+
+
+def wide_trace_batch(rng: np.random.Generator, S: int, min_len: int = 1,
+                     max_len: int = 2500):
+    """Extents for the wide trace's checks, laid out in two pools A and B.
+    Four kinds in turn: mutated pairs (5-25% error); pairs whose B gains
+    or loses a base every 3 to 10 of A, so the commits drift the band by
+    tens of lanes; pairs whose B span is an eighth of A's, so the end
+    column can fall outside the band (the d >= INF_I branch); alim = 0.
+    Starts are split off word boundaries into start + offset; the first
+    extent's B window starts before the pool and the last one's runs past
+    its end.  Returns (A, B, astart, bstart, abpos, bbpos, alim, blim)."""
+    a_parts, b_parts = [], []
+    for i in range(S):
+        L = int(rng.integers(min_len, max_len + 1))
+        src = rng.integers(0, 4, L).astype(np.uint8)
+        if i % 4 == 1:
+            at = np.arange(0, L, int(rng.integers(3, 11)))
+            if rng.random() < 0.5:
+                b = np.insert(src, at, rng.integers(0, 4, len(at)))
+            else:
+                b = np.delete(src, at)
+            b = mutate(b.astype(np.uint8), 0.05, rng)
+        else:
+            b = mutate(src, float(rng.uniform(0.05, 0.25)), rng)
+        a_parts.append(src)
+        b_parts.append(b)
+    a_off = np.cumsum([0] + [len(x) for x in a_parts])
+    b_off = np.cumsum([0] + [len(x) for x in b_parts])
+    alim = np.diff(a_off)
+    blim = np.diff(b_off)
+    kind = np.arange(S) % 4
+    blim = np.where(kind == 2, np.maximum(blim // 8, 1), blim)
+    alim = np.where(kind == 3, 0, alim)
+    blim[-1] += 300
+    ao, bo = a_off[:-1], b_off[:-1]
+    abp = np.minimum(rng.integers(1, 90, S), ao)
+    bbp = np.minimum(rng.integers(1, 90, S), bo)
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    return (np.concatenate(a_parts), np.concatenate(b_parts), i32(ao - abp),
+            i32(bo - bbp), i32(abp), i32(bbp), i32(alim), i32(blim))
+
+
+def band_batch(rng: np.random.Generator, S: int, track: bool, R: int = 100,
+               W: int = 128):
+    """Arguments of one wide DP rows call (dp_rows) over S random bands:
+    D near the reset band with some values above INF_I and eight bands
+    wholly above it, chars with 15% mismatches, random limits, and per-
+    lane ([S, W], track) or per-band ([S]) trackers.  Returns (D, a_chars,
+    b_tile, vb_base, p_base, blim, rows_limit, active, best_s, best_va,
+    best_vb, best_d, cont) as int32 arrays."""
+    INF = 1 << 20
+    lane = np.arange(W)
+    D = np.where(lane >= W // 2, lane - W // 2, INF)[None, :].repeat(S, 0)
+    D = D + rng.integers(0, 3, (S, W)) * (D < INF)
+    D[rng.random((S, W)) < 0.05] = INF + 3
+    D[:8] = INF + 3        # whole bands above INF: the right edge decides
+    src = rng.integers(0, 4, (S, R + W + 28))
+    b = np.where(rng.random(src.shape) < 0.15,
+                 rng.integers(0, 4, src.shape), src)
+    a = src[:, W // 2:W // 2 + R + 28]
+    vec = lambda lo, hi: rng.integers(lo, hi, S)  # noqa: E731
+    tr = (S, W) if track else (S,)
+    trk = [rng.integers(-50, 50, tr) for _ in range(4)]
+    vals = (D, a, b, vec(-70, 10), vec(0, 500), vec(0, 400),
+            vec(-3, R + 5), vec(0, 2), *trk, vec(0, 2))
+    return tuple(np.ascontiguousarray(x, dtype=np.int32) for x in vals)

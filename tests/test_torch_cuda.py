@@ -11,10 +11,10 @@ import torch
 
 from damar_tpu_torch.ops import wave_bp, wave_wide
 from damar_tpu_torch.ops.words import pack_bases
-from damar_tpu_torch.utils.sim import edge_units, unit_batch
+from damar_tpu_torch.utils.sim import (band_batch, edge_units, unit_batch,
+                                       wide_trace_batch)
 
 W = 128
-INF = 1 << 20
 
 
 @pytest.fixture
@@ -144,21 +144,8 @@ def test_trace_offsets_odd_counts_and_cap(dev, tspace, max_segs, S):
 
 
 def _dp_inputs(seed, S, R, track):
-    rng = np.random.default_rng(seed)
-    lane = np.arange(W)
-    D = np.where(lane >= W // 2, lane - W // 2, INF)[None, :].repeat(S, 0)
-    D = (D + rng.integers(0, 3, (S, W)) * (D < INF)).astype(np.int32)
-    D[rng.random((S, W)) < 0.05] = INF + 3
-    src = rng.integers(0, 4, (S, 256))
-    b = np.where(rng.random(src.shape) < 0.15,
-                 rng.integers(0, 4, src.shape), src).astype(np.int32)
-    a = src[:, W // 2:W // 2 + 128].astype(np.int32)
-    vec = lambda lo, hi: rng.integers(lo, hi, S).astype(np.int32)  # noqa
-    tr = (S, W) if track else (S,)
-    trk = [rng.integers(-50, 50, tr).astype(np.int32) for _ in range(4)]
-    vals = (D, a, b, vec(-70, 10), vec(0, 500), vec(0, 400),
-            vec(-3, R + 5), vec(0, 2), *trk)
-    return [torch.as_tensor(x) for x in vals], torch.as_tensor(vec(0, 2))
+    *vals, cont = band_batch(np.random.default_rng(seed), S, track, R)
+    return [torch.as_tensor(x) for x in vals], torch.as_tensor(cont)
 
 
 @pytest.mark.cuda
@@ -184,3 +171,45 @@ def test_trace_wave_on_card_matches_cpu(dev):
     want = wave_wide.trace_wave(*args, max_segs=32)
     got = wave_wide.trace_wave(*(x.to(dev) for x in args), max_segs=32)
     _same(want, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tspace,max_segs,S,max_len", [
+    (100, 64, 1, 2500), (100, 64, 33, 2500), (126, 48, 1031, 2500),
+    (100, 256, 120, 20_000), (100, 6, 400, 6000), (100, 64, 517, 6000),
+    (126, 256, 60, 20_000)])
+def test_wide_trace_kernel_matches_plain(dev, tspace, max_segs, S, max_len):
+    """One wide_trace_kernel launch against trace_wave_plain: extents of
+    1 to max_len rows, starts off word boundaries, windows past both pool
+    edges, drifting commits, the d >= INF_I commit, alim = 0 rows, and
+    (max_segs 6) the last slot overwritten."""
+    A, B, *vecs = wide_trace_batch(np.random.default_rng(S + max_len), S,
+                                   max_len=max_len)
+    aw, bw = pack_bases(torch.as_tensor(A)), pack_bases(torch.as_tensor(B))
+    vecs = [torch.as_tensor(x) for x in vecs]
+    want = wave_wide.trace_wave_plain(aw.to(dev), bw.to(dev),
+                                      *(x.to(dev) for x in vecs), tspace,
+                                      max_segs)
+    before = wave_wide.trace_wave.launches
+    got = wave_wide.trace_wide_kernel(aw.to(dev), bw.to(dev),
+                                      *(x.to(dev) for x in vecs), tspace,
+                                      max_segs)
+    assert wave_wide.trace_wave.launches == before + 1
+    _same(want, got)
+
+
+@pytest.mark.cuda
+def test_no_work_launches_nothing(dev):
+    """A wrapper given no items launches nothing (the C side returns
+    before its launch) and counts nothing."""
+    e = torch.empty(0, dtype=torch.int32, device=dev)
+    w = torch.zeros(4, dtype=torch.int32, device=dev)
+    counters = (wave_bp.extend_wave_bp, wave_bp.trace_wave_bp,
+                wave_wide.trace_wave)
+    before = [f.launches for f in counters]
+    wave_bp.extend_bp_kernel(w, w, e, e, e, e, e.bool(), 128, 65536, 5, 60)
+    for fn in (wave_bp.trace_bp_kernel, wave_wide.trace_wide_kernel):
+        trace, nseg, dsum = fn(w, w, e, e, e, e, e, e, 100, 8)
+        assert trace.shape == (0, 8, 2) and nseg.numel() == 0
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == before

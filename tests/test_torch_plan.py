@@ -1,12 +1,14 @@
-"""The port's launch plans for K1 (extension) and K2 (bp trace).
+"""The port's launch plans for K1 (extension), K2 (bp trace) and K3 (the
+wide trace retries).
 
 K1 runs one launch per phase and orientation over every unit slot, its
-work order longest bound first; K2 one launch per segment-count bucket
-(split only above the trace-buffer cap), extents longest first.  These
-tests check that the plans cover every unit and extent exactly once,
-that the order and bucket rules hold, and that the .las bytes still
-equal damar_tpu's all-device route on a pair whose read lengths spread
-more than 10x.  Tolerance: exact equality.  CPU (plain versions)."""
+work order longest bound first; K2 and the wide retries one launch per
+segment-count bucket (split only above the trace-buffer cap), extents
+longest first.  These tests check that the plans cover every unit and
+extent exactly once, that the order and bucket rules hold, and that the
+.las bytes still equal damar_tpu's all-device route on a pair whose read
+lengths spread more than 10x.  Tolerance: exact equality.  CPU (plain
+versions)."""
 import numpy as np
 import pytest
 import torch
@@ -145,3 +147,32 @@ def test_spread_pair_las_bytes_and_trace_launches(reads, monkeypatch,
     segs = [kw["max_segs"] for _, kw, _ in calls]
     assert len(set(segs)) == len(segs) and set(segs) <= {
         8, 16, 32, 64, 128, 256, 512, cap}
+
+
+def test_wide_retry_plan_covers_every_retry_once(monkeypatch):
+    """The wide retry round: one launch per segment-count bucket of the
+    retried extents, each retried extent in exactly one launch, spans
+    non-increasing inside a launch, and as many extents as the stats
+    count; the .las bytes of this pair stay the reference's
+    (tests/test_torch_slice.py)."""
+    g = make_genome(20_000, seed=7)
+    reads = sample_reads(g, coverage=8.0, mean_len=2500, err=0.14,
+                         seed=8).reads
+    calls = _record(monkeypatch, "trace_wave")
+    pb = block_from_reads(reads)
+    cfg = OverlapConfig()
+    _, _, stats = ov.overlap_block_pair(pb, pb, cfg, True,
+                                        emit_mirrors=True, device="cpu")
+    assert stats["trace_retries"] > 0 and calls
+    keys, segs = [], []
+    for a, kw, _ in calls:
+        spans = a[6].numpy()
+        assert (np.diff(spans) <= 0).all()
+        keys += list(zip(*(x.numpy() for x in a[2:8])))
+        segs.append(kw["max_segs"])
+    assert len(keys) == len(set(keys)) == stats["trace_retries"]
+    abp = np.array([k[2] for k in keys])
+    expect = ov._n_segments_vec(abp, abp + np.array([k[4] for k in keys]),
+                                cfg.tspace)
+    bucket = ov._segs_bucket(expect, ov._cap_segs(cfg))
+    assert sorted(segs) == sorted(set(bucket.tolist()))

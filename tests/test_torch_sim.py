@@ -68,7 +68,8 @@ def test_config_defaults_match():
     from dataclasses import asdict
     ours, ref = asdict(OverlapConfig()), asdict(RefConfig())
     assert ours == {k: ref[k] for k in ours}
-    assert set(ref) - set(ours) == {"seed_batch", "use_pallas", "dp_kernel"}
+    assert set(ref) - set(ours) == {"seed_batch", "seed_batch_dev",
+                                    "use_pallas", "dp_kernel"}
     assert ref["dp_kernel"] == "bp"
 
 

@@ -28,7 +28,9 @@ torch.set_num_threads(2)
 SRC = (Path(__file__).resolve().parent.parent / "damar_tpu_torch" / "csrc"
        / "wave_bp.cu")
 
-HOST_SHIM = r"""
+# host definitions of the CUDA qualifiers and intrinsics the device code
+# uses (shared with tests/test_torch_dp_rows_host.py)
+HOST_PRELUDE = r"""
 #include <algorithm>
 #include <cstdint>
 #define __device__
@@ -47,6 +49,9 @@ inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t sh) {
                                >> (sh & 31));
 }
 inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+"""
+
+HOST_SHIM = HOST_PRELUDE + r"""
 #include "wave_bp.cu"
 
 extern "C" void host_extend(
@@ -77,19 +82,25 @@ extern "C" void host_trace(
 """
 
 
-@pytest.fixture(scope="module")
-def host(tmp_path_factory):
+def build_host(tmp_path_factory, name: str, source: str) -> ctypes.CDLL:
+    """Compile `source` (a shim that includes a csrc/ file) with g++ into a
+    shared library and load it; skips without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels' device code as host "
                     "C++")
-    d = tmp_path_factory.mktemp("wave_bp_host")
-    (d / "host.cpp").write_text(HOST_SHIM)
-    lib = d / "libwave_bp_host.so"
+    d = tmp_path_factory.mktemp(name)
+    (d / "host.cpp").write_text(source)
+    lib = d / f"lib{name}.so"
     subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
                     f"-I{SRC.parent}", "-o", str(lib), str(d / "host.cpp")],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    return build_host(tmp_path_factory, "wave_bp_host", HOST_SHIM)
 
 
 def _ptr(a: np.ndarray):

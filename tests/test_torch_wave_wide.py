@@ -1,8 +1,11 @@
 """Port vs reference: the plain torch K3 behind damar_tpu_torch.ops.
 wave_wide.dp_rows must equal damar_tpu's Pallas dp_rows (interpret mode
 on the CPU) in trace mode and in track_best+recenter mode, and the port's
-trace_wave wrapper must equal trace_wave_pl.  Tolerance: exact equality
-(integer outputs); inputs from numpy seeds."""
+wide trace (trace_wave on the CPU = trace_wave_plain, and
+trace_wave_steps over dp_rows_plain) must equal trace_wave_pl.  The
+kernels' closed-form prefix-min is held against the reference's 7-step
+scan.  Tolerance: exact equality (integer outputs); inputs from numpy
+seeds."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +15,8 @@ from damar_tpu.ops.wave_pallas import dp_rows as dp_rows_ref
 from damar_tpu.ops.wave_pallas import trace_wave_pl
 from damar_tpu.utils.sim import mutate
 from damar_tpu_torch.ops import wave_wide
+from damar_tpu_torch.ops.words import pack_bases
+from damar_tpu_torch.utils.sim import wide_trace_batch
 
 torch.set_num_threads(2)
 T = torch.as_tensor
@@ -93,8 +98,76 @@ def test_trace_wave_vs_pallas(noisy_pair, tspace):
 
 def test_trace_wave_no_launch_on_cpu(noisy_pair):
     A, B = noisy_pair
-    before = wave_wide.dp_rows.launches
+    before = wave_wide.dp_rows.launches, wave_wide.trace_wave.launches
     z = np.zeros(2, np.int32)
     wave_wide.trace_wave(T(A), T(B), T(z), T(z), T(z + 300), T(z + 10),
                          T(z + 250), T(z + 240), max_segs=8)
-    assert wave_wide.dp_rows.launches == before
+    assert (wave_wide.dp_rows.launches,
+            wave_wide.trace_wave.launches) == before
+
+
+_REF = {}
+
+
+def _batch_ref(tspace, max_segs, S):
+    """A wide_trace_batch and trace_wave_pl's result on it (memoized: the
+    routes below share it)."""
+    key = (tspace, max_segs, S)
+    if key not in _REF:
+        batch = wide_trace_batch(np.random.default_rng(tspace + S), S,
+                                 max_len=1500)
+        ref = trace_wave_pl(*map(jnp.asarray, batch), tspace=tspace,
+                            max_segs=max_segs)
+        _REF[key] = batch, [np.asarray(x) for x in ref]
+    return _REF[key]
+
+
+@pytest.mark.parametrize("route", ["plain", "steps", "trace_wave"])
+@pytest.mark.parametrize("tspace,max_segs", [(100, 24), (126, 24), (100, 6)])
+def test_trace_wave_batch_vs_pallas(tspace, max_segs, route):
+    """Extents that start and end off word boundaries, windows past both
+    pool edges, commits that drift the band by tens of lanes, the
+    d >= INF_I commit, alim = 0 rows, and (max_segs 6) the last slot
+    overwritten past max_segs."""
+    S = 24
+    (A, B, *vecs), ref = _batch_ref(tspace, max_segs, S)
+    aw, bw = pack_bases(T(A)), pack_bases(T(B))
+    if route == "plain":
+        got = wave_wide.trace_wave_plain(aw, bw, *map(T, vecs), tspace,
+                                         max_segs)
+    elif route == "steps":
+        got = wave_wide.trace_wave_steps(aw, bw, *map(T, vecs), tspace,
+                                         max_segs, wave_wide.dp_rows_plain)
+    else:
+        got = wave_wide.trace_wave(T(A), T(B), *map(T, vecs),
+                                   tspace=tspace, max_segs=max_segs)
+    for n, x, y in zip(("trace", "nseg", "dsum"), ref, got):
+        np.testing.assert_array_equal(x, y.numpy(), err_msg=f"trace {n}")
+    alim, blim = vecs[4], vecs[5]
+    assert (alim == 0).any() and (ref[1][alim == 0] == 0).all()
+    assert (ref[0][..., 0] == (alim + blim)[:, None]).any()
+    if max_segs == 6:
+        assert (ref[1] > max_segs).sum() > S // 4
+
+
+def test_closed_form_scan_equals_reference_scan():
+    """prefix_min (the reference's 7-step scan with its INF_I fill) equals
+    min(INF_I, cummin(u)) lane for lane on rows that straddle INF_I,
+    lanes 0-126 on any row; lane 127 never takes the fill, so it equals
+    the closed form on DP rows, where u_127 <= D_128 + 1 - 127 =
+    INF_I - 126 (the kernels' case), and may not on other rows."""
+    rng = np.random.default_rng(12)
+    n = 2000
+    u = np.where(rng.random((n, W)) < 0.5,
+                 rng.integers(INF - 300, INF + 300, (n, W)),
+                 rng.integers(-200, 400, (n, W)))
+    u[n // 2:] = rng.integers(INF - 300, INF + 300, (n - n // 2, W))
+    u[-20:] = rng.integers(INF + 1, INF + 300, (20, W))
+    closed = np.minimum(INF, np.minimum.accumulate(u, axis=1))
+    got = wave_wide.prefix_min(T(u)).numpy()
+    np.testing.assert_array_equal(got[:, :W - 1], closed[:, :W - 1])
+    assert (got[:, W - 1] != closed[:, W - 1]).any()   # rows all above INF
+    u[:, W - 1] = np.minimum(u[:, W - 1], INF - 126)
+    closed = np.minimum(INF, np.minimum.accumulate(u, axis=1))
+    np.testing.assert_array_equal(wave_wide.prefix_min(T(u)).numpy(),
+                                  closed)
