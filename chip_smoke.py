@@ -34,48 +34,103 @@ Phases (any failure exits non-zero before the last line is printed):
      the plain version with CUDA events; hold every other
      wide_trace_kernel launch of the pass (each segment bucket, capped
      at CAP extents) against trace_wave_plain too; K3's chunk form
-     (dp_rows_kernel, off the main path) the same way on fuzz shapes,
-     in both modes; then run the profiled pass's wide retries again
+     (dp_rows_kernel) the same way on its first launch of the wide route
+     (phase 6, which runs before this one) and, in trace mode, on fuzz
+     shapes; then run the profiled pass's wide retries again
      through the earlier route (trace_wave_steps: one dp_rows_kernel
      launch per segment step) and through wide_trace_kernel, hold both
      against the plain outputs, and print each route's device time,
      launches and wall;
-  6. a small self pair and a distinct pair (emit_mirrors on) on the card
+  6. the wide route: one self pair with dp_kernel="wide" at the quick
+     size (500 kbp genome at 20x, ~10 Mbp of reads; smaller than the
+     main unit because this route steps every unit 128 int32 lanes a row
+     through a host loop, one dp_rows_kernel launch per 128 rows): a
+     cold pass, a counted warm pass (dp_rows_kernel and
+     wide_trace_kernel must both launch; check_las clean), then a
+     profiled pass whose every dp_rows_kernel launch is counted for the
+     bound and whose sampled launches are held against dp_rows_plain,
+     and whose every wide_trace_kernel launch (the main trace here, all
+     extents; capped at CAP) is held against trace_wave_plain;
+     a small self pair with dp_kernel="wide" on the card must give the
+     CPU path's .las columns;
+  7. a small self pair and a distinct pair (emit_mirrors on) on the card
      must give the same .las columns as the CPU path (the plain versions,
      which the CPU tests hold byte-equal to damar_tpu);
+  8. the block sweep at full width: a 10 Mbp genome at 20x (~200 Mbp of
+     reads, the main unit's parameters scaled 4x) written as FASTA, made
+     into a DB and split into 4 blocks of ~50 Mbp; run_overlap_plan
+     over its 10 pairs on the card (pipelined pairs, size hints, the
+     resident-block LRU, prefetch, the manifest, per-block merges), then
+     a plain loop of overlap_block_pair over the same blocks
+     (plain_sweep): every pair file and merged file must be byte-equal
+     between the two (--sweep-rounds N runs both forms N times in turns,
+     sweep, plain, plain, sweep, ..., every run byte-equal to the first,
+     and prints the walls' medians: host-clock walls on a shared host
+     spread by tens of percent, so only turns within one call compare
+     the forms); check_las clean and sorted on every merged file; every
+     record must have its mirror; a second run_overlap_plan must find
+     every job done.  Walls, Gbp-aligned/s, per-pair phase times and
+     peak memory are printed for both.  Then half the pairs again as
+     host 0 of 2 with DAMAR_RESIDENT_BLOCKS=1, so that blocks' device
+     buffers are released while the pair before is still in its emit on
+     the worker's stream: the same bytes.  Then one distinct pair (B !=
+     A, mirrors on) with every launch kept: its files must be the plain
+     loop's, and its first launches of K1, K2 and K3 (PAIR_HELD; capped
+     at CAP items) must equal their plain versions, so the sweep is held
+     against the plain versions at its own shapes and not only against
+     itself;
 then print one JSON line of per-kernel results and, last, the device
 line.
 """
 import argparse
+import filecmp
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from damar_tpu_torch.core.blocks import block_from_reads
+from damar_tpu_torch.core.blocks import block_from_db, block_from_reads
 from damar_tpu_torch.core.config import OverlapConfig
+from damar_tpu_torch.formats import dazzdb
+from damar_tpu_torch.formats import las as lasmod
 from damar_tpu_torch.formats.las import check_las
 from damar_tpu_torch.ops import _cuda, wave_bp, wave_wide
 from damar_tpu_torch.ops.words import pack_bases
+from damar_tpu_torch.parallel.distributed import block_pair_matrix
 from damar_tpu_torch.pipeline import overlap as ov
+from damar_tpu_torch.pipeline.planner import run_overlap_plan
 from damar_tpu_torch.utils.sim import (band_batch, edge_units,
                                        make_genome, sample_reads,
-                                       unit_batch, wide_trace_batch)
+                                       unit_batch, wide_trace_batch,
+                                       write_sim_fasta)
 
 GENOME, COVERAGE, MEAN_LEN, ERR, SEED = 2_500_000, 20.0, 6_000, 0.14, 2024
 HIT_CAP, SEED_CAP = 1 << 27, 1 << 21
 CAP = 16_384          # work items of a first launch held against plain
+# the wide route's unit: the quick size of the reference's bench
+GENOME_QUICK, QUICK_HIT_CAP, QUICK_SEED_CAP = 500_000, 1 << 25, 1 << 19
+# the sweep's unit: the main unit's genome scaled 4x, split into 4 blocks
+GENOME_SWEEP, SWEEP_BLOCKS = 10_000_000, 4
 
 # Bounds: the least time the card could take for a launch's work, the
-# larger of its int32 operations over the INT32 rate (132 SMs x 64 lanes
-# x 1.98 GHz boost, Hopper white paper) and its bytes (each input read
-# once, each output written once) over the HBM rate (3.35 TB/s, H100
-# SXM data sheet).  Operations per DP row (K3: per lane-row): the
+# larger of its int32 operations over the INT32 rate and its bytes (each
+# input read once, each output written once) over the HBM rate (3.35
+# TB/s, H100 SXM data sheet).  The INT32 rate is the card's issue rate
+# of integer lane-ops, 132 SMs x 4 schedulers x 32 lanes x 1.98
+# GHz boost = 33.5 T/s (the Hopper white paper's INT32 peak).  The 64
+# lanes of an SM's INT32 pipes alone (16.7 T/s, this file's rate until
+# the wide route ran) are no ceiling: the compiler moves integer adds
+# and moves onto the FMA pipes (IMAD), and dp_rows_kernel's first
+# wide-route launch ran 22.9 T lane-ops/s by its SASS count.
+# Operations per DP row (K3: per lane-row): the
 # smaller of the built kernel's count (`sass_ops_per_row`) and an
 # estimate of what a row needs with sm_90's three-input instructions
 # (LOP3, IADD3, funnel shifts): ~60 for K1, ~50 for K2.  K3's warp row
@@ -85,7 +140,7 @@ CAP = 16_384          # work items of a first launch held against plain
 # 17 per lane-row; the chunk form adds a char load a lane (~18), and
 # with track_best the score and its four trackers (~9 more).  Chunk
 # tails and commits are left out.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 OPS_ESTIMATE = {"bp_extend_kernel": 60, "bp_trace_kernel": 50,
                 "wide_trace_kernel": 17, "dp_rows_kernel": 18}
@@ -98,9 +153,19 @@ LOADS_PER_ROW = {"bp_extend_kernel": 1 / 8, "bp_trace_kernel": 1 / 8,
 # band lanes a thread holds (K3), so SASS per thread-row / lanes = per
 # lane-row
 LANES = {"wide_trace_kernel": 4, "dp_rows_kernel": 4}
-# the kernels the main path launches; dp_rows_kernel serves the wide
-# extension, which is not ported yet
+# the kernels each driven path must launch: the large-50Mbp pair and the
+# sweep run the bit-parallel route, the wide route K3 in both forms
 MAIN_PATH = ("bp_extend_kernel", "bp_trace_kernel", "wide_trace_kernel")
+# the launches of the sweep's spied pair that are held against the plain
+# versions: K1's forward extension in both phases and its
+# reverse-complement one in the first, K2's and K3's first two segment
+# buckets (every bucket mixes both orientations and the mirrored roles).
+# The plain versions step through every row of a launch's longest item
+# in Python: a second-phase K1 launch took 36 s, the later buckets 12-34
+# s each, all 14 launches 211 s on an H100
+PAIR_HELD = {"bp_extend_kernel": 3, "bp_trace_kernel": 2,
+             "wide_trace_kernel": 2}
+WIDE_PATH = ("dp_rows_kernel", "wide_trace_kernel")
 
 # kernel name -> (wrapper whose `launches` counts it, module, launch fn,
 # plain torch version with the same contract, source, replaced TPU kernel)
@@ -361,6 +426,10 @@ def bound(ops: int, byts: int) -> tuple[float, str]:
 # which no count or time below includes.
 LEAD_RECORDS, LEAD_KEY = 256, "neg_kernel"
 
+# how often a profile that lost launch records is taken again before the
+# run gives up (two in a row were lost late in a run that passed)
+PROFILE_TRIES = 6
+
 # every time a profile still held fewer launch records of a kernel than
 # its wrapper counted (the profile is then taken again); printed in the
 # kernels line, so a recurrence shows in every run's output
@@ -461,7 +530,8 @@ def device_ms(prof) -> tuple[dict, dict]:
     return ms, n
 
 
-def kernel_ms(name: str, fn, reps: int, tries: int = 3) -> float:
+def kernel_ms(name: str, fn, reps: int,
+              tries: int = PROFILE_TRIES) -> float:
     """Device time of one launch of kernel `name` by fn(), the mean of
     `reps` launches under the profiler.  A profile that lost launch
     records all the same is logged and taken again, up to `tries`
@@ -596,6 +666,473 @@ def same_las(x, y) -> bool:
             and np.array_equal(x.columns.offsets, y.columns.offsets))
 
 
+def reset_launches() -> None:
+    for wrapper, *_ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: v[0].launches for k, v in KERNELS.items()}
+
+
+def hold_launches(where: str, calls: dict) -> None:
+    """Each launch in `calls` (kernel name -> [(args, kwargs)], as
+    `capped` returns them) again on the card, held against the kernel's
+    plain version on the same arguments; exits on any difference."""
+    for name, launches in calls.items():
+        _, mod, attr, plain, *_rest = KERNELS[name]
+        for i, (a, k) in enumerate(launches):
+            t0 = time.time()
+            e = max_abs_err(getattr(mod, attr)(*a, **k), plain(*a, **k))
+            log(f"{name}, {where} launch {i}: {a[2].shape[0]} items, "
+                f"max_abs_err {e} (plain {time.time() - t0:.1f} s)")
+            if e:
+                raise SystemExit(f"chip_smoke: {name} disagrees with its "
+                                 f"plain version on the {where}")
+
+
+def build_db(workdir: str, genome_bp: int, nblocks: int):
+    """Simulated reads (the main unit's parameters) -> workdir/reads.fasta
+    -> workdir/S.db, split into nblocks blocks.  Returns (db, reads,
+    total bp, seconds for the reads, seconds for FASTA + DB + split)."""
+    t0 = time.time()
+    sim = sample_reads(make_genome(genome_bp, seed=SEED), coverage=COVERAGE,
+                       mean_len=MEAN_LEN, err=ERR, seed=SEED + 1)
+    nreads, total_bp = len(sim.reads), sum(len(r) for r in sim.reads)
+    t_sim = time.time() - t0
+    write_sim_fasta(f"{workdir}/reads.fasta", sim)
+    del sim
+    dazzdb.create_db(f"{workdir}/S.db", [f"{workdir}/reads.fasta"])
+    size_mb = max(1, -(-total_bp // (nblocks * 1_000_000)))
+    db = dazzdb.db_split(f"{workdir}/S.db", size_mb=size_mb, cutoff=0)
+    return db, nreads, total_bp, t_sim, time.time() - t0 - t_sim
+
+
+def write_pair(las_dir: str, i: int, j: int, la, lb) -> None:
+    """A pair's files, as run_overlap_plan names and fills them."""
+    out_a = f"{las_dir}/S.{i}.S.{j}.las"
+    if i != j:
+        lasmod.write_las(out_a, la)
+        lasmod.write_las(f"{las_dir}/S.{j}.S.{i}.las", lb)
+    else:
+        both = lasmod.LasFile.concat([la, lb])
+        both.sort()
+        lasmod.write_las(out_a, both)
+
+
+def plain_sweep(db, cfg: OverlapConfig, las_dir: str, device) -> None:
+    """The sweep's files by a plain loop: every pair of the DB's blocks
+    through overlap_block_pair, then one merge per A block.  No
+    pipelining, hints, LRU, prefetch or manifest; a block's caches are
+    cleared when its row is done, as the sweep does."""
+    n = db.nblocks
+    blocks = {}
+    for i, j in block_pair_matrix(n):
+        for b in (i, j):
+            if b not in blocks:
+                blocks[b] = block_from_db(db, b)
+        la, lb, _ = ov.overlap_block_pair(blocks[i], blocks[j], cfg, i == j,
+                                          hit_cap=HIT_CAP, seed_cap=SEED_CAP,
+                                          device=device)
+        write_pair(las_dir, i, j, la, lb)
+        if j == n:
+            blocks[i].cache.clear()
+    for i in range(1, n + 1):
+        lasmod.merge_las([f"{las_dir}/S.{i}.S.{j}.las"
+                          for j in range(1, n + 1)], f"{las_dir}/S.{i}.las")
+
+
+def same_files(a: str, b: str, names: list | None = None) -> str | None:
+    """The first .las file of directory `a` (or of `names`) that `b`
+    lacks or holds with other bytes; None when all are equal."""
+    if names is None:
+        names = sorted(f for f in os.listdir(a) if f.endswith(".las"))
+        if names != sorted(f for f in os.listdir(b) if f.endswith(".las")):
+            return "(the file lists differ)"
+    for f in names:
+        if not (os.path.exists(f"{b}/{f}") and filecmp.cmp(
+                f"{a}/{f}", f"{b}/{f}", shallow=False)):
+            return f
+    return None
+
+
+class ChunkSpy:
+    """While the wide route runs: the work (rows, ops, bytes) of every
+    dp_rows_kernel launch, summed for the bound, and the arguments of
+    the sampled launches (the first two, then every `every`-th), capped
+    at CAP bands and copied, to hold against dp_rows_plain afterwards;
+    and the arguments of every wide_trace_kernel launch (this route's
+    main trace), capped at CAP extents, to hold against trace_wave_plain.
+    The launches go through unchanged."""
+
+    def __init__(self, sass: dict, every: int = 25):
+        self.sass, self.every = sass, every
+        self.n = self.rows = self.ops = self.byts = 0
+        self.kept = []
+        self.traces = []
+
+    def __enter__(self):
+        self.fn = wave_wide.dp_rows_kernel
+        self.trace_fn = wave_wide.trace_wide_kernel
+
+        def trace_spy(*a, **kw):
+            n0 = wave_wide.trace_wave.launches
+            out = self.trace_fn(*a, **kw)
+            if wave_wide.trace_wave.launches != n0:
+                self.traces.append(capped("wide_trace_kernel", a, kw))
+            return out
+        wave_wide.trace_wide_kernel = trace_spy
+
+        def spy(*a, **kw):
+            n0 = wave_wide.dp_rows.launches
+            out = self.fn(*a, **kw)
+            if wave_wide.dp_rows.launches == n0:
+                return out
+            r, o, b = work("dp_rows_kernel", a, kw, out, self.sass)
+            self.rows, self.ops, self.byts = (self.rows + r, self.ops + o,
+                                              self.byts + b)
+            if self.n < 2 or self.n % self.every == 0:
+                ca, ck = capped("dp_rows_kernel", a, kw)
+                cl = lambda x: x.clone() if torch.is_tensor(x) else x  # noqa
+                self.kept.append((self.n, tuple(cl(x) for x in ca),
+                                  {k: cl(v) for k, v in ck.items()}))
+            self.n += 1
+            return out
+        wave_wide.dp_rows_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        wave_wide.dp_rows_kernel = self.fn
+        wave_wide.trace_wide_kernel = self.trace_fn
+        return False
+
+
+def wide_route(dev, card: str, sass: dict) -> dict:
+    """Phase 6 (see the module docstring).  Returns the dp_rows_kernel
+    numbers of the route's passes and the kept launches."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.time()
+    g = make_genome(GENOME_QUICK, seed=SEED)
+    sim = sample_reads(g, coverage=COVERAGE, mean_len=MEAN_LEN, err=ERR,
+                       seed=SEED + 1)
+    blk = block_from_reads(sim.reads)
+    log(f"wide route, quick-10Mbp: {len(sim.reads)} reads, "
+        f"{sum(len(r) for r in sim.reads)} bp, block cap {blk.cap}, setup "
+        f"{time.time() - t0:.1f} s")
+    cfg = OverlapConfig(dp_kernel="wide")
+    kw = dict(self_block=True, hit_cap=QUICK_HIT_CAP,
+              seed_cap=QUICK_SEED_CAP, emit_mirrors=False, device=dev)
+
+    def one_pass():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        las_a, _, stats = ov.overlap_block_pair(blk, blk, cfg, **kw)
+        torch.cuda.synchronize()
+        return las_a, stats, time.time() - t0
+
+    las_c, _, wall = one_pass()
+    log(f"wide route, cold pass: wall {wall:.4f} s, overlaps {las_c.novl}")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    las_a, stats, wall = one_pass()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    aligned = int(las_a.a_spans().sum())
+    log(f"wide route, warm pass: overlaps {las_a.novl}, aligned bp "
+        f"{aligned}, wall {wall:.4f} s, {aligned / wall / 1e9:.4f} "
+        f"Gbp-aligned/s on {card}")
+    log(f"wide route stats: {json.dumps(stats, default=int)}")
+    log(f"wide route launches in the pass: {launches}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} B)")
+    problems = check_las(las_a, blk.rlen)
+    if problems:
+        raise SystemExit(f"chip_smoke: wide route check_las: {problems[:5]}")
+    if las_a.novl <= 0 or las_a.novl != las_c.novl:
+        raise SystemExit("chip_smoke: wide route: no overlaps, or the warm "
+                         "pass gave other records than the cold one")
+    if stats.get("seed_overflow"):
+        raise SystemExit("chip_smoke: wide route: seeding buffers overflowed")
+    missing = [k for k in WIDE_PATH if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernels not launched by the wide "
+                         f"route: {missing}")
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with ChunkSpy(sass) as spy, profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            lead_records()
+            las_s, _, wall_p = one_pass()
+        ms, n = device_ms(prof)
+        if not lost_launches(f"wide route, profile {attempt + 1} of "
+                             f"{PROFILE_TRIES}",
+                             {"dp_rows_kernel": spy.n,
+                              "wide_trace_kernel": len(spy.traces)}, n):
+            break
+    else:
+        raise SystemExit("chip_smoke: the profiler kept losing launches")
+    if (las_s.novl != las_a.novl or spy.n != launches["dp_rows_kernel"]
+            or len(spy.traces) != launches["wide_trace_kernel"]):
+        raise SystemExit("chip_smoke: the spied wide pass differs from the "
+                         "counted one")
+    bms, by = bound(spy.ops, spy.byts)
+    log(f"dp_rows_kernel in one wide-route pass: {spy.n} launches, "
+        f"{ms['dp_rows_kernel']:.4f} ms device time, {spy.rows} lane-rows, "
+        f"bound {bms:.4f} ms ({by}), share of bound "
+        f"{bms / ms['dp_rows_kernel']:.3f}; the pass's wall {wall_p:.4f} s "
+        f"(profiler and spy on), wide_trace_kernel "
+        f"{ms['wide_trace_kernel']:.4f} ms in {n['wide_trace_kernel']} "
+        f"launches, on {card}")
+    t0 = time.time()
+    err = 0
+    for i, a, k in spy.kept:
+        e = max_abs_err(wave_wide.dp_rows_kernel(*a, **k),
+                        wave_wide.dp_rows_plain(*a, **k))
+        if e:
+            log(f"dp_rows_kernel, wide-route launch {i}: max_abs_err {e}")
+        err = max(err, e)
+    log(f"dp_rows_kernel vs plain on {len(spy.kept)} sampled wide-route "
+        f"launches (of {spy.n}; bands {[a[0].shape[0] for _, a, _ in spy.kept][:8]}"
+        f"...): max_abs_err {err} ({time.time() - t0:.1f} s)")
+    if err:
+        raise SystemExit("chip_smoke: dp_rows_kernel disagrees with its "
+                         "plain version on the wide route")
+    hold_launches("wide route", {"wide_trace_kernel": spy.traces})
+    # a small self pair: card == CPU path under dp_kernel="wide"
+    t0 = time.time()
+    small = sample_reads(make_genome(20_000, seed=11), coverage=6.0,
+                         mean_len=2000, err=0.14, seed=12).reads
+    sb = block_from_reads(small)
+    outs = [ov.overlap_block_pair(sb, sb, cfg, True, emit_mirrors=True,
+                                  device=d) for d in (dev, "cpu")]
+    for i in (0, 1):
+        problems = check_las(outs[0][i], sb.rlen)
+        if problems or not same_las(outs[0][i], outs[1][i]):
+            raise SystemExit(f"chip_smoke: wide small pair: card and CPU "
+                             f"paths differ or check_las failed "
+                             f"(las_{'ab'[i]}): {problems[:5]}")
+    if outs[0][0].novl <= 0:
+        raise SystemExit("chip_smoke: wide small pair: no overlaps")
+    log(f"wide small self pair: {outs[0][0].novl} + {outs[0][1].novl} "
+        f"records, card == CPU path, check_las clean "
+        f"({time.time() - t0:.1f} s)")
+    return dict(launches=launches["dp_rows_kernel"],
+                pass_ms=ms["dp_rows_kernel"], pass_bound_ms=bms, bound_by=by,
+                rows=spy.rows, wall_s=wall, overlaps=las_a.novl,
+                aligned_bp=aligned, sampled=len(spy.kept), kept=spy.kept,
+                wide_trace_launches=launches["wide_trace_kernel"])
+
+
+def mirrors_missing(merged: list, rlen: np.ndarray) -> int:
+    """How many records of the merged files lack their mirror (the same
+    alignment with the reads' roles swapped; a comp record's mirror has
+    both intervals counted from the reads' other ends)."""
+    h = np.concatenate([m.columns.headers for m in merged]).astype(np.int64)
+    ar, br, comp = h[:, 7], h[:, 8], h[:, 6] & 1
+    abp, aep, bbp, bep = h[:, 2], h[:, 4], h[:, 3], h[:, 5]
+    la, lb = rlen[ar].astype(np.int64), rlen[br].astype(np.int64)
+    own = np.stack([ar, br, comp, abp, aep, bbp, bep], axis=1)
+    mir = np.stack([br, ar, comp,
+                    np.where(comp == 1, lb - bep, bbp),
+                    np.where(comp == 1, lb - bbp, bep),
+                    np.where(comp == 1, la - aep, abp),
+                    np.where(comp == 1, la - abp, aep)], axis=1)
+    own = own[np.lexsort(own.T[::-1])]
+    mir = mir[np.lexsort(mir.T[::-1])]
+    return int((own != mir).any(axis=1).sum())
+
+
+def sweep_phase(dev, card: str, rounds: int) -> dict:
+    """Phase 8 (see the module docstring).  Returns the sweep's numbers
+    and the launches of each kernel in it."""
+    cfg = OverlapConfig()
+    w = tempfile.mkdtemp(prefix="damar_smoke_sweep_")
+    try:
+        db, nreads, total_bp, t_sim, t_db = build_db(w, GENOME_SWEEP,
+                                                     SWEEP_BLOCKS)
+        n = db.nblocks
+        pairs = block_pair_matrix(n)
+        rlen = db.reads["rlen"]
+        log(f"sweep: {nreads} reads, {total_bp} bp in {n} blocks of <= "
+            f"{db.block_size_mb} Mbp ({len(pairs)} pairs); reads "
+            f"{t_sim:.1f} s, FASTA + DB + split {t_db:.1f} s")
+        if n != SWEEP_BLOCKS:
+            raise SystemExit(f"chip_smoke: sweep: {n} blocks, wanted "
+                             f"{SWEEP_BLOCKS}")
+
+        def plan(las_dir, **kw):
+            return run_overlap_plan(f"{w}/S.db", cfg, las_dir=las_dir,
+                                    verbose=False, hit_cap=HIT_CAP,
+                                    seed_cap=SEED_CAP, device=dev, **kw)
+
+        def run(form, out):
+            """One run of the sweep or of the plain loop into the new
+            directory `out`: (wall, peak device memory, stats)."""
+            os.makedirs(out)
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            stats = (plan(out) if form == "sweep"
+                     else plain_sweep(db, cfg, out, dev))
+            torch.cuda.synchronize()
+            return (time.time() - t0, torch.cuda.max_memory_allocated(dev),
+                    stats)
+
+        # ---- the sweep (run_overlap_plan), then the plain loop ----
+        reset_launches()
+        wall, peak, stats = run("sweep", f"{w}/sweep")
+        launches = read_launches()
+        pair_stats = stats.pop("pair_stats")
+        if stats["pairs"] != len(pairs) or stats["skipped"]:
+            raise SystemExit(f"chip_smoke: sweep ran {stats}")
+        if any(p.get("seed_overflow") for p in pair_stats):
+            raise SystemExit("chip_smoke: sweep: seeding buffers overflowed")
+        missing = [k for k in MAIN_PATH if launches[k] <= 0]
+        if missing:
+            raise SystemExit(f"chip_smoke: kernels not launched by the "
+                             f"sweep: {missing}")
+        for p in pair_stats:
+            log(f"  {p['pair']}: " + ", ".join(
+                f"{k} {p[k]}" for k in ("t_seed", "t_extend", "t_dedupe",
+                                        "t_pool", "t_trace", "kept",
+                                        "trace_retries", "dropped_trace")
+                if k in p))
+        wall_plain, peak_plain, _ = run("plain", f"{w}/plain")
+
+        # ---- (a) every file byte-equal ----
+        names = sorted(f for f in os.listdir(f"{w}/plain")
+                       if f.endswith(".las"))
+        bad = same_files(f"{w}/plain", f"{w}/sweep")
+        if len(names) != n * n + n or bad:
+            raise SystemExit(f"chip_smoke: sweep: {bad} differs from the "
+                             f"plain loop's, or other files: {names}")
+        # ---- more rounds of both forms, in turns ----
+        walls = {"sweep": [wall], "plain": [wall_plain]}
+        for r in range(1, rounds):
+            for form in (("plain", "sweep") if r % 2 else
+                         ("sweep", "plain")):
+                t, _, _ = run(form, f"{w}/again")
+                walls[form].append(t)
+                bad = same_files(f"{w}/plain", f"{w}/again")
+                if bad:
+                    raise SystemExit(f"chip_smoke: sweep round {r} ({form}): "
+                                     f"{bad} differs from the first run's")
+                shutil.rmtree(f"{w}/again")
+        # ---- (b), (c): merged files ----
+        t0 = time.time()
+        merged = [lasmod.read_las(f"{w}/sweep/S.{i}.las")
+                  for i in range(1, n + 1)]
+        for i, m in enumerate(merged, 1):
+            problems = check_las(m, rlen)
+            if problems:
+                raise SystemExit(f"chip_smoke: sweep: check_las S.{i}.las: "
+                                 f"{problems[:5]}")
+        novl = sum(m.novl for m in merged)
+        spans = sum(int(m.a_spans().sum()) for m in merged)
+        lost = mirrors_missing(merged, rlen)
+        if novl <= 0 or novl % 2 or lost:
+            raise SystemExit(f"chip_smoke: sweep: {novl} merged records, "
+                             f"{lost} without their mirror")
+        aligned = spans // 2
+        t_check = time.time() - t0
+        del merged
+        # ---- (d) a second run finds every job done ----
+        again = plan(f"{w}/sweep")
+        if again["pairs"] or again["skipped"] != len(pairs):
+            raise SystemExit(f"chip_smoke: sweep: the second run recomputed "
+                             f"pairs: {again}")
+        log(f"sweep: {len(names)} files byte-equal to the plain loop's; "
+            f"merged files check_las clean and sorted, {novl} records, each "
+            f"with its mirror (checks {t_check:.1f} s); second run skipped "
+            f"{again['skipped']} pairs, ran {again['pairs']}")
+        log(f"sweep (run_overlap_plan): wall {wall:.4f} s, "
+            f"{len(pairs) / wall:.4f} pairs/s, aligned bp {aligned} "
+            f"(merged A spans {spans} / 2), {aligned / wall / 1e9:.4f} "
+            f"Gbp-aligned/s/gpu, peak device memory {peak / 2**30:.2f} GiB "
+            f"({peak} B) on {card}")
+        log(f"plain loop (overlap_block_pair, same blocks, same call): wall "
+            f"{wall_plain:.4f} s, {aligned / wall_plain / 1e9:.4f} "
+            f"Gbp-aligned/s/gpu, peak device memory "
+            f"{peak_plain / 2**30:.2f} GiB ({peak_plain} B); sweep / plain "
+            f"wall {wall / wall_plain:.3f} on {card}")
+        if rounds > 1:
+            med = {f: float(np.median(v)) for f, v in walls.items()}
+            log(f"in turns, {rounds} rounds: sweep walls "
+                f"{[round(x, 4) for x in walls['sweep']]} s, median "
+                f"{med['sweep']:.4f} s; plain loop walls "
+                f"{[round(x, 4) for x in walls['plain']]} s, median "
+                f"{med['plain']:.4f} s; sweep / plain "
+                f"{med['sweep'] / med['plain']:.3f}; every run's files "
+                f"byte-equal; on {card}")
+        log(f"launches in the sweep: {launches}")
+
+        # ---- (e) half the pairs again (host 0 of 2) with one resident
+        # block: every B block's device buffers are released, and every
+        # A block's when its row ends, while the pair before is still in
+        # its emit on the worker's stream ----
+        released = []
+        real = ov.release_device_buffers
+        ov.release_device_buffers = lambda b: released.append(1) or real(b)
+        os.environ["DAMAR_RESIDENT_BLOCKS"] = "1"
+        os.makedirs(f"{w}/evict")
+        try:
+            t0 = time.time()
+            half = plan(f"{w}/evict", nhosts=2, host_id=0)
+            t_half = time.time() - t0
+        finally:
+            ov.release_device_buffers = real
+            del os.environ["DAMAR_RESIDENT_BLOCKS"]
+        mine = [f for f in sorted(os.listdir(f"{w}/evict"))
+                if f.endswith(".las")]
+        bad = same_files(f"{w}/evict", f"{w}/sweep", mine)
+        half.pop("pair_stats", None)
+        if (not released or bad or half["pairs"] != (len(pairs) + 1) // 2
+                or half.get("merges_deferred") != n):
+            raise SystemExit(f"chip_smoke: sweep with one resident block: "
+                             f"{len(released)} releases, {bad} differs, "
+                             f"stats {half}")
+        log(f"sweep, host 0 of 2, DAMAR_RESIDENT_BLOCKS=1: {half['pairs']} "
+            f"pairs, {len(released)} blocks released under pending emits, "
+            f"{len(mine)} files byte-equal to the sweep's ({t_half:.1f} s)")
+
+        # ---- one distinct pair (mirrors on: B != A, the rc blocks'
+        # pool offsets, swapped roles), every launch kept: its records
+        # must be the plain loop's files, and its first PAIR_HELD
+        # launches of each kernel (capped at CAP items) must equal their
+        # plain versions ----
+        t0 = time.time()
+        b1, b2 = block_from_db(db, 1), block_from_db(db, 2)
+        with Spy() as spy:
+            la, lb, _ = ov.overlap_block_pair(b1, b2, cfg, False,
+                                              hit_cap=HIT_CAP,
+                                              seed_cap=SEED_CAP, device=dev)
+        os.makedirs(f"{w}/pair")
+        write_pair(f"{w}/pair", 1, 2, la, lb)
+        bad = same_files(f"{w}/pair", f"{w}/plain",
+                         ["S.1.S.2.las", "S.2.S.1.las"])
+        if bad or lb.novl <= 0:
+            raise SystemExit(f"chip_smoke: sweep: the spied pair 1, 2 wrote "
+                             f"other bytes than the plain loop ({bad})")
+        del la, lb
+        held = {k: [capped(k, a, kw) for a, kw, _ in spy.calls[k][:m]]
+                for k, m in PAIR_HELD.items()}
+        del spy
+        n_held = {k: len(v) for k, v in held.items()}
+        if not all(n_held.values()):
+            raise SystemExit(f"chip_smoke: sweep: the spied pair launched "
+                             f"{n_held}")
+        hold_launches("sweep pair 1, 2", held)
+        log(f"sweep pair 1, 2 (distinct, mirrors): files byte-equal to the "
+            f"plain loop's; launches {n_held} equal to their plain versions "
+            f"({time.time() - t0:.1f} s)")
+        return dict(launches=launches, wall_s=wall, wall_plain_s=wall_plain,
+                    aligned_bp=aligned, records=novl, peak_bytes=peak,
+                    peak_plain_bytes=peak_plain, pairs=len(pairs),
+                    total_bp=total_bp, released_one_resident=len(released),
+                    pair_launches_held=n_held)
+    finally:
+        shutil.rmtree(w, ignore_errors=True)
+
+
 def report_profile(prof, wall: float, path: str | None) -> None:
     """Prints the profiled pass's device time, busy share, the host's
     stream syncs and kernel launches; writes the full tables to `path`
@@ -633,9 +1170,12 @@ def main(argv=None) -> int:
                     help="warm main-path passes to time (default 1)")
     ap.add_argument("--profile", metavar="PATH",
                     help="write the profiled warm pass's tables to PATH")
+    ap.add_argument("--sweep-rounds", type=int, default=1,
+                    help="runs of the sweep and of the plain loop, in "
+                         "turns (default 1 of each)")
     args = ap.parse_args(argv)
-    if args.passes < 1:
-        ap.error("--passes must be at least 1")
+    if args.passes < 1 or args.sweep_rounds < 1:
+        ap.error("--passes and --sweep-rounds must be at least 1")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False); nothing was run")
@@ -695,15 +1235,14 @@ def main(argv=None) -> int:
         f"{las_a.novl}; stats {json.dumps(stats, default=int)}")
     walls = []
     for i in range(args.passes):
-        for wrapper, *_ in KERNELS.values():
-            wrapper.launches = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t0 = time.time()
         las_a, _, stats = ov.overlap_block_pair(blk, blk, cfg, **kw)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
-        launches = {k: v[0].launches for k, v in KERNELS.items()}
+        launches = read_launches()
         peak = torch.cuda.max_memory_allocated(dev)
         aligned = int(las_a.a_spans().sum())
         errs_las = check_las(las_a, blk.rlen)
@@ -734,7 +1273,7 @@ def main(argv=None) -> int:
     # ---- one more warm pass, profiled, with every launch kept (taken
     # again if the profile lost launch records) ----
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(3):
+    for attempt in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with Spy() as spy, profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -747,7 +1286,8 @@ def main(argv=None) -> int:
             per = spy.summary(prof, sass, cfg.max_read_len)
             break
         except LostLaunches:
-            log(f"profiled pass {attempt + 1} of 3 lost launch records")
+            log(f"profiled pass {attempt + 1} of {PROFILE_TRIES} lost launch "
+                f"records")
     else:
         raise SystemExit("chip_smoke: the profiler kept losing launches")
     report_profile(prof, wall, args.profile)
@@ -779,6 +1319,12 @@ def main(argv=None) -> int:
         jobs.append(a)
         want.append(ref)
 
+    # ---- the wide route: K3's chunk form on a path ----
+    t0 = time.time()
+    wide = wide_route(dev, card, sass)
+    launches["dp_rows_kernel"] = wide["launches"]
+    log(f"wide route: {time.time() - t0:.1f} s")
+
     # ---- each kernel vs plain at its first main-path launch, timed ----
     rows = []
     for name, (_, mod, attr, plain, src, replaces) in KERNELS.items():
@@ -787,11 +1333,12 @@ def main(argv=None) -> int:
             if not spy.calls[name]:
                 raise SystemExit(f"chip_smoke: no spied launch of {name}")
             cases = {"main path": capped(name, *spy.calls[name][0][:2])}
-        else:       # off the main path: fuzz shapes, both modes
-            rng = np.random.default_rng(13)
-            cases = {mode: dp_rows_batch(rng, CAP, *flags) for mode, flags
-                     in (("trace", (False, False)),
-                         ("track_recenter", (True, True)))}
+        else:       # the chunk form: its first wide-route launch (track +
+            # recenter), then trace mode, which only the per-step retry
+            # route below takes, on fuzz shapes
+            cases = {"wide route": wide["kept"][0][1:],
+                     "trace": dp_rows_batch(np.random.default_rng(13), CAP,
+                                            False, False)}
         timed = {}
         for case, (a, k) in cases.items():
             out = launch(*a, **k)
@@ -815,19 +1362,19 @@ def main(argv=None) -> int:
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=None,
             library="none: no PyTorch call computes this banded DP")
-        p = per[name]
-        if name in MAIN_PATH:
-            row.update(pass_ms=round(p["pass_ms"], 4),
-                       pass_bound_ms=round(p["pass_bound_ms"], 4),
-                       pass_bound_by=p["bound_by"],
-                       bound_share=round(p["pass_bound_ms"] / p["pass_ms"],
-                                         4),
-                       pass_rows=p["rows"])
-        else:
-            row.update(pass_ms=None, modes=timed,
-                       note="off the main path (the wide extension's "
-                            "kernel): ms, plain_ms, bound_ms are trace mode "
-                            "on fuzz shapes; both modes under modes")
+        p = per[name] if name in MAIN_PATH else wide
+        row.update(pass_ms=round(p["pass_ms"], 4),
+                   pass_bound_ms=round(p["pass_bound_ms"], 4),
+                   pass_bound_by=p["bound_by"],
+                   bound_share=round(p["pass_bound_ms"] / p["pass_ms"], 4),
+                   pass_rows=p["rows"])
+        if name not in MAIN_PATH:
+            row.update(modes=timed, sampled_launches_vs_plain=wide["sampled"],
+                       note="launches, pass_ms, pass_bound_ms and bound_share "
+                            "are one wide-route pass (quick-10Mbp, "
+                            "dp_kernel=wide); ms, plain_ms, bound_ms its "
+                            "first launch there, capped; trace mode on fuzz "
+                            "shapes under modes")
         rows.append(row)
     if any(r["max_abs_err"] for r in rows):
         raise SystemExit("chip_smoke: a kernel disagrees with its plain "
@@ -835,6 +1382,7 @@ def main(argv=None) -> int:
 
     routes = compare_wide_routes(jobs, want, card)
     del spy, jobs, want
+    wide.pop("kept")
 
     # ---- small pairs: card == CPU path (== damar_tpu, per the tests) ----
     t0 = time.time()
@@ -864,7 +1412,22 @@ def main(argv=None) -> int:
             f"records, card == CPU path, check_las clean")
     log(f"small pairs: {time.time() - t0:.1f} s")
 
+    # ---- the block sweep from a DB on disk ----
+    del blk, las_a, las_s
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    swept = sweep_phase(dev, card, args.sweep_rounds)
+    log(f"sweep phase: {time.time() - t0:.1f} s")
+    for r in rows:
+        r["sweep_launches"] = swept["launches"][r["name"]]
+    rows[-2]["wide_route_launches"] = wide["wide_trace_launches"]
+    rows[-1]["wide_route_launches"] = wide["launches"]
+    swept.pop("launches")
+    if any(r["launches"] <= 0 for r in rows):
+        raise SystemExit("chip_smoke: a kernel was launched on no path")
+
     print(json.dumps({"kernels": rows, "wide_retry_routes": routes,
+                      "wide_route": wide, "sweep": swept,
                       "profiler_lost_launches": LOST_LAUNCHES}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,22 @@
 """damar_tpu_torch — the PyTorch/CUDA port of damar_tpu.
 
-The daligner-equivalent overlap path of damar_tpu (one DB block pair in,
-.las overlap records out) rebuilt on PyTorch for an NVIDIA Hopper GPU.
+The daligner-equivalent overlap path of damar_tpu (a read database on
+disk, every block against every block, .las overlap records out) rebuilt
+on PyTorch for an NVIDIA Hopper GPU.
 The package imports torch and numpy and never jax: the JAX package
 ``damar_tpu`` stays beside it as the reference that every part of the
 port is held against, bit for bit.
 
 Layer map (the same layout and names as damar_tpu):
   core/      — OverlapConfig, the ReadBlock layout (numpy)
-  formats/   — .las columns, writer, reader, check_las (numpy)
+  formats/   — FASTA, the read database (.db/.idx/.bps), tracks, .las
+               columns: writer, reader, sort, merge, check_las (numpy)
   utils/     — the read simulator (same reads from the same seed)
   ops/       — torch ops for seeding, sorts and packed words; the three
                hand-written CUDA kernels (csrc/) behind their wrappers
-  pipeline/  — the block-pair pipeline overlap_block_pair
+  pipeline/  — overlap_block_pair, the pipelined pairs, and the block
+               sweep run_overlap_plan
+  parallel/  — the pair matrix and its split over hosts
 
 Kernels: each wrapper launches its CUDA kernel for a CUDA tensor and
 takes its plain torch version only for a CPU tensor.  There is no

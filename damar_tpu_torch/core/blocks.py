@@ -74,6 +74,13 @@ def build_block(bases: np.ndarray, starts: np.ndarray, ids: np.ndarray,
     )
 
 
+def block_from_db(db, b: int, cap: int | None = None) -> ReadBlock:
+    """Block b (1-based) of an open formats.dazzdb.DazzDB: its trimmed
+    reads, with their untrimmed DB indices as ids."""
+    bases, starts, ids = db.block_seqs(b)
+    return build_block(bases, starts, ids, cap=cap)
+
+
 def block_from_reads(reads: list[np.ndarray], ids: np.ndarray | None = None,
                      cap: int | None = None) -> ReadBlock:
     """Build a block directly from a list of code arrays (tests/sim)."""

@@ -1,9 +1,9 @@
 """Overlap phase configuration: the fields of damar_tpu.core.config's
 OverlapConfig that the port reads, with the same defaults (daligner
--k14 -w6 -h35 -e.70 -l1000 -s100).  The reference's kernel switches
-(use_pallas, dp_kernel) and launch widths (seed_batch, seed_batch_dev)
-have no counterpart: the port has one route, the bit-parallel ("bp")
-kernels on the device."""
+-k14 -w6 -h35 -e.70 -l1000 -s100).  The reference's use_pallas switch
+and launch widths (seed_batch, seed_batch_dev) have no counterpart: each
+dp_kernel has one implementation here, the CUDA kernels on the card and
+their plain versions on the CPU."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -27,6 +27,10 @@ class OverlapConfig:
     xdrop: int = 60             # X-drop termination threshold (diff units)
     max_read_len: int = 65536   # static bound on read length in kernels
     diff_cost: int = 5          # score = antidiag - diff_cost * diffs
+    dp_kernel: str = "bp"       # "bp" (bit-parallel, default) | "wide"
+                                # (a lane per diagonal: one wide
+                                # extension phase per orientation, the
+                                # wide trace as the main trace)
     bp_chunk: int = 128         # bp extension rows between recenters
                                 # (a multiple of 16)
     ext_phase1_rows: int = 128  # two-phase extension: run every unit

@@ -81,7 +81,10 @@ struct CharStream {
 // Persistent grid: as many blocks of `threads` as fit on the card at
 // once, but no more than `needed`.  The fit is fixed per kernel and
 // device, so it is asked once (the occupancy query costs host time on
-// every launch otherwise, while the stream may stand idle).
+// every launch otherwise, while the stream may stand idle).  Two host
+// threads may launch at once (a sweep's emit thread and its caller): both
+// would then compute and store the same value, an aligned int, so the
+// cache needs no lock.
 template <auto Kernel>
 int grid_for(int threads, int needed) {
   static int fit_of[64] = {0};  // per device ordinal

@@ -15,9 +15,10 @@
 // and x-drop tracking) and 630 in K2 (39.4 a row: no tracking, no
 // centre counter); chip_smoke.py counts them from the built code at
 // every run.  The work is the rows the outputs need: K1 sum(bva) over
-// its units, once per unit, K2 sum(alim) over its extents.  At 132 SMs
-// x 64 INT32 lanes x 1.98 GHz = 16.7 T int32 ops/s the large-50Mbp pass
-// needs ~2.5 ms of K1 and ~1.4 ms of K2.  Bytes are no bound: a unit
+// its units, once per unit, K2 sum(alim) over its extents.  At the
+// card's issue rate of 132 SMs x 128 lanes x 1.98 GHz = 33.5 T int32
+// lane-ops/s the large-50Mbp pass needs ~1.3 ms of K1 and ~0.7
+// ms of K2.  Bytes are no bound: a unit
 // reads 21 bytes of arguments, writes 16 (K1) or 8 per segment (K2), and
 // reads its chars at 2 bits each.
 //

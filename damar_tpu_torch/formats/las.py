@@ -13,11 +13,14 @@ segment; segments are delimited by absolute multiples of tspace in A.
 Records are sorted by (aread, bread, COMP bit, abpos, aepos, bbpos).
 
 This is the columnar subset of damar_tpu.formats.las that the overlap
-pipeline emits and checks; it writes the same bytes.
+pipeline and the block sweep emit, read, merge and check; it writes the
+same bytes.  The per-record Overlap objects, reconstruct_alignment and
+show_las are not ported yet (the pile tools that need them are not).
 """
 from __future__ import annotations
 
 import os
+import struct
 
 import numpy as np
 
@@ -167,6 +170,17 @@ class LasFile:
         """LAsort order: (aread, bread, comp, abpos, aepos, bbpos)."""
         self.columns = self.columns.permute(self.columns.sort_order())
 
+    @staticmethod
+    def concat(parts: list["LasFile"]) -> "LasFile":
+        """Concatenate record sets in the order given."""
+        if not parts:
+            return LasFile(tspace=100)
+        ts = {p.tspace for p in parts if p.novl} or {parts[0].tspace}
+        if len(ts) != 1:
+            raise ValueError(f"mixed tspace values {ts}")
+        return LasFile(ts.pop(), columns=LasColumns.concat(
+            [p.columns for p in parts]))
+
 
 def write_las(path: str, las: LasFile, _chunk: int = 1 << 25) -> None:
     """Bulk columnar writer: assembles the file image in bounded record
@@ -205,7 +219,9 @@ def write_las(path: str, las: LasFile, _chunk: int = 1 << 25) -> None:
 
 
 def read_las_columns(path: str) -> tuple[int, LasColumns]:
-    """Read a .las into columnar form (record walk)."""
+    """Read a .las into columnar form: one walk over the record starts
+    (each record's length is in its own header), then bulk gathers of
+    the headers and the trace payload."""
     head = np.fromfile(path, dtype=np.uint8, count=12)
     if head.size < 12:
         raise ValueError(f"{path}: truncated header")
@@ -217,29 +233,35 @@ def read_las_columns(path: str) -> tuple[int, LasColumns]:
         raise ValueError(
             f"{path}: header claims {novl} records but the file holds "
             f"{size} bytes (corrupt or truncated)")
-    small = tspace <= TRACE_XOVR
+    width = 1 if tspace <= TRACE_XOVR else 2
     raw = np.fromfile(path, dtype=np.uint8)
+    buf = memoryview(raw)
+    end = len(raw)
+    rec = np.zeros(novl, np.int64)          # byte offset of each record
+    lens = np.zeros(novl, np.int64)         # its trace payload's bytes
+    tlen_at = struct.Struct("<i").unpack_from
     pos = 12
-    headers = np.zeros((novl, 10), np.int32)
-    offs = np.zeros(novl + 1, np.int64)
-    chunks = []
     for i in range(novl):
-        if pos + 40 > len(raw):
+        if pos + 40 > end:
             raise ValueError(f"{path}: truncated record {i}")
-        rec = raw[pos:pos + 40].view(np.int32)
-        headers[i] = rec
-        pos += 40
-        tb = int(rec[0]) * (1 if small else 2)
-        if tb < 0 or pos + tb > len(raw):
+        tb = tlen_at(buf, pos)[0] * width
+        if tb < 0 or pos + 40 + tb > end:
             raise ValueError(f"{path}: truncated trace of record {i}")
-        chunks.append(raw[pos:pos + tb])
-        offs[i + 1] = offs[i] + tb
-        pos += tb
-    if pos != len(raw):
-        raise ValueError(f"{path}: {len(raw) - pos} trailing bytes")
-    trace = (np.concatenate(chunks) if chunks
-             else np.zeros(0, np.uint8))
-    return tspace, LasColumns(headers, trace, offs)
+        rec[i] = pos
+        lens[i] = tb
+        pos += 40 + tb
+    if pos != end:
+        raise ValueError(f"{path}: {end - pos} trailing bytes")
+    headers = raw[rec[:, None] + np.arange(40)].view("<i4").reshape(novl, 10)
+    offs = np.zeros(novl + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    return tspace, LasColumns(headers, _gather_ragged(raw, rec + 40, lens),
+                              offs)
+
+
+def read_las(path: str) -> LasFile:
+    tspace, cols = read_las_columns(path)
+    return LasFile(tspace=tspace, columns=cols)
 
 
 def check_las(las: LasFile, rlen_a, rlen_b=None, sorted_order: bool = True,
@@ -327,3 +349,24 @@ def check_las(las: LasFile, rlen_a, rlen_b=None, sorted_order: bool = True,
         for i in np.nonzero(viol)[0][:max_report]:
             errs.append(f"[{i + 1}] sort order violation")
     return errs
+
+
+# --- merge / sort / cat (LAsort, LAmerge, LAcat equivalents) ---------------
+
+def sort_las_file(path: str, out: str | None = None) -> None:
+    las = read_las(path)
+    las.sort()
+    write_las(out or path, las)
+
+
+def merge_las(paths: list[str], out: str) -> None:
+    """Merge sorted .las files into one sorted file: concatenate the
+    columns in the order given and sort (stable, so equal keys keep the
+    order of `paths`, as a k-way merge would)."""
+    las = LasFile.concat([read_las(p) for p in paths])
+    las.sort()
+    write_las(out, las)
+
+
+def cat_las(paths: list[str], out: str) -> None:
+    write_las(out, LasFile.concat([read_las(p) for p in paths]))

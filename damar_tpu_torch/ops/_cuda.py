@@ -134,6 +134,16 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA launch of {name} failed: error {err}")
 
 
+def count_launch(wrapper, items: int) -> None:
+    """Add one to wrapper.launches for a launch over `items` work items
+    (none: the C side launched nothing).  Under the lock: the sweep's
+    emit thread launches the trace kernels while the caller's thread
+    launches the extension."""
+    if items > 0:
+        with _lock:
+            wrapper.launches += 1
+
+
 def stream_ptr(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream

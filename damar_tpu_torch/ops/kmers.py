@@ -7,6 +7,7 @@ soft mask covers the start.  Codes are held in int64 (2k <= 30 bits).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -44,3 +45,19 @@ def kmer_codes_canonical(bases: torch.Tensor, read_id: torch.Tensor,
     codes = torch.where(valid, canon, torch.full_like(canon,
                                                       invalid_code(k)))
     return codes, strand
+
+
+def mask_vector_from_track(track_data: list[np.ndarray],
+                           starts: np.ndarray, cap: int) -> np.ndarray:
+    """Host side: expand per-read mask intervals (flat [b, e, ...] lists,
+    read-local coordinates, clipped to the read) into a block's bool[cap]
+    suppression vector (the daligner -m soft-mask input)."""
+    out = np.zeros(cap, dtype=bool)
+    for j, iv in enumerate(track_data):
+        if len(iv) == 0:
+            continue
+        s = int(starts[j])
+        e = int(starts[j + 1])
+        for b, t in iv.reshape(-1, 2):
+            out[min(s + int(b), e):min(s + int(t), e)] = True
+    return out

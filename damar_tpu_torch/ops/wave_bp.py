@@ -346,7 +346,7 @@ def extend_bp_kernel(a_words, b_words, aorigin, borigin, alim, blim, rv,
         diff_cost, xdrop, counter.data_ptr(), *[o.data_ptr() for o in outs],
         _cuda.stream_ptr(aorigin))
     _cuda.check(err, "bp_extend_kernel")
-    extend_wave_bp.launches += S > 0    # no seeds: nothing launched
+    _cuda.count_launch(extend_wave_bp, S)
     return tuple(outs)
 
 
@@ -373,7 +373,7 @@ def trace_bp_kernel(a_words, b_words, astart, bstart, abpos, bbpos, alim,
         counter.data_ptr(), trace.data_ptr(), nseg.data_ptr(),
         dsum.data_ptr(), _cuda.stream_ptr(abpos))
     _cuda.check(err, "bp_trace_kernel")
-    trace_wave_bp.launches += S > 0     # no extents: nothing launched
+    _cuda.count_launch(trace_wave_bp, S)
     return trace, nseg, dsum
 
 

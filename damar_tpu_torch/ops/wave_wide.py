@@ -1,9 +1,10 @@
 """Wide banded DP (W = 128 diagonals, one lane each) and its trace pass.
 
-Port of damar_tpu/ops/wave_pallas.py: dp_rows and the trace_wave_pl
-wrapper.  The wide band is the last retry tier of the trace pass: it
-forces through extents whose alignment drifts beyond the reach of the
-32-diagonal bit-parallel band.
+Port of damar_tpu/ops/wave_pallas.py: dp_rows and the trace_wave_pl and
+extend_wave_pl wrappers.  The wide band is the last retry tier of the
+trace pass (it forces through extents whose alignment drifts beyond the
+reach of the 32-diagonal bit-parallel band) and, under
+dp_kernel="wide", the extension and the main trace.
 
 Kernels (CUDA C++ in damar_tpu_torch/csrc/dp_rows.cu), both in place of
 _dp_rows_kernel (wave_pallas.py:43):
@@ -11,14 +12,14 @@ _dp_rows_kernel (wave_pallas.py:43):
                      launch: every segment of every extent, with its
                      commit, one warp per extent
   dp_rows_kernel     R rows of a batch of bands, trace mode or
-                     track_best + recenter (the chunk form, for the wide
-                     extension)
+                     track_best + recenter (the chunk form, which
+                     extend_wave_wide drives one launch per R rows)
 One warp holds a band, four lanes a thread in registers; a row's
 prefix-min is a warp-shuffle scan with no barrier (the file's header
 says what bounds them).  Beside each kernel, its plain torch version:
 trace_wave_plain (the reference's segment loop, trace_wave_steps, over
 dp_rows_plain) and dp_rows_plain; the wrappers take them only for CPU
-tensors.  The wide extension wrapper (extend_wave_pl) is not ported yet.
+tensors.
 """
 from __future__ import annotations
 
@@ -171,7 +172,7 @@ def dp_rows_kernel(D, a_chars, b_tile, vb_base, p_base, blim, rows_limit,
         drift_o.data_ptr(), S, R, W, diff_cost, xdrop, int(track_best),
         int(recenter), _cuda.stream_ptr(D))
     _cuda.check(err, "dp_rows_kernel")
-    dp_rows.launches += S > 0           # no bands: nothing launched
+    _cuda.count_launch(dp_rows, S)
     return (D_o, act_o, *trk_o, drift_o)
 
 
@@ -197,6 +198,106 @@ def dp_rows(D, a_chars, b_tile, vb_base, p_base, blim, rows_limit,
 
 
 dp_rows.launches = 0
+
+
+def reduce_best_lanes(bs_l, bva_l, bvb_l, bd_l):
+    """Collapse per-lane best trackers to the best per seed: max score,
+    then min va, then min vb (damar_tpu ops.wave.reduce_best_lanes).
+    Returns (va, vb, d, score); all 0 where the best score is <= 0."""
+    s = bs_l.max(dim=1).values
+    at = bs_l == s[:, None]
+    va = torch.where(at, bva_l, INF_I).min(dim=1).values
+    at = at & (bva_l == va[:, None])
+    vb = torch.where(at, bvb_l, INF_I).min(dim=1).values
+    at = at & (bvb_l == vb[:, None])
+    d = torch.where(at, bd_l, INF_I).min(dim=1).values
+    keep = s > 0
+    return tuple(torch.where(keep, x, 0) for x in (va, vb, d, s))
+
+
+# extend_wave_wide: the most bytes one step's char tiles and band state
+# may take; more units than fit are run as several batches.  A unit and
+# step take the a_chars [R] and b_tile [R + W] int32 tiles, their int64
+# gather scratch (about five copies of each) and the [W] band with its
+# four trackers, in and out.
+EXT_STEP_BYTES = 1 << 30
+
+
+def _ext_unit_bytes(R: int, W: int) -> int:
+    return 5 * 8 * (2 * R + W + 64) + 4 * (2 * R + W) + 2 * 5 * 4 * W
+
+
+def extend_wave_wide(a_bases, b_bases, aorigin, borigin, alim, blim,
+                     reverse: bool = False, W: int = 128, R: int = 128,
+                     max_rows: int = 65536, diff_cost: int = 5,
+                     xdrop: int = 60, dirs=None, packed: bool = False):
+    """Wide-band greedy extension of S units (damar_tpu extend_wave_pl,
+    same returns): R rows a step through dp_rows in chunk form
+    (track_best, recenter, cont), the chars of each step gathered from
+    the packed pools (gather_packed); on a CUDA device every step is one
+    dp_rows_kernel launch, on the CPU dp_rows_plain.
+
+    dirs: optional bool[S] per-unit direction (True = reverse), in place
+    of the static `reverse`.  packed: a_bases/b_bases are already
+    pack_bases words.  A unit's outputs do not depend on its batch
+    mates (every unit starts at row 0, and an inactive unit's band and
+    trackers are frozen), so the units run longest first in batches of
+    at most EXT_STEP_BYTES of step state, and each step takes only the
+    batch's still-active units.  Returns (va, vb, d, score) int32 [S]:
+    the endpoint with the best score = (va + vb) - diff_cost * d found
+    before the x-drop stop."""
+    if W != 128:
+        raise ValueError("extend_wave_wide supports W = 128 only")
+    dev = aorigin.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    a_words = a_bases if packed else pack_bases(a_bases)
+    b_words = b_bases if packed else pack_bases(b_bases)
+    S = aorigin.shape[0]
+    CTR = W // 2
+    i64 = lambda x: x.to(torch.int64)  # noqa: E731
+    aorigin, borigin, alim, blim = (i64(x) for x in (aorigin, borigin,
+                                                     alim, blim))
+    lane = torch.arange(W, device=dev)
+    D0 = torch.where(lane >= CTR, lane - CTR, INF_I).to(torch.int32)
+    outs = [torch.zeros(S, dtype=torch.int32, device=dev) for _ in range(4)]
+    live = torch.nonzero(alim > 0).flatten()
+    order = live[torch.argsort(alim[live], descending=True, stable=True)]
+    per = max(1, EXT_STEP_BYTES // _ext_unit_bytes(R, W))
+    for lo in range(0, int(order.shape[0]), per):
+        sel = order[lo:lo + per]
+        n = sel.shape[0]
+        ao, bo, al, bl = aorigin[sel], borigin[sel], alim[sel], blim[sel]
+        rv = reverse if dirs is None else dirs[sel]
+        D = D0.repeat(n, 1)
+        trk = [torch.zeros((n, W), dtype=torch.int32, device=dev)
+               for _ in range(4)]
+        boff = torch.zeros(n, dtype=torch.int64, device=dev)
+        act = torch.arange(n, device=dev)        # the still-active units
+        rtot = 0
+        while act.numel() and rtot < max_rows:
+            rv_s = rv if isinstance(rv, bool) else rv[act]
+            v0 = torch.full_like(act, rtot)
+            bf = boff[act]
+            a_chars = gather_packed(a_words, ao[act], v0, R, rv_s)
+            b_tile = gather_packed(b_words, bo[act], rtot + bf - CTR, R + W,
+                                   rv_s)
+            rows = (al[act] - rtot).clamp(0, R)
+            res = dp_rows(
+                D[act], a_chars, _pad_cols(b_tile, 128), rtot + 1 - CTR + bf,
+                v0 + 1, bl[act], rows, torch.ones_like(act),
+                *[t[act] for t in trk], R=R, W=W, diff_cost=diff_cost,
+                xdrop=xdrop, track_best=True, recenter=True,
+                cont=(rtot + R) < al[act])
+            D[act] = res[0]
+            for t, r in zip(trk, res[2:6]):
+                t[act] = r
+            boff[act] = bf + i64(res[6])
+            rtot += R
+            act = act[(res[1] != 0) & (rtot < al[act])]
+        for o, r in zip(outs, reduce_best_lanes(*trk)):
+            o[sel] = r
+    return tuple(outs)
 
 
 def _pad_cols(x, m: int):
@@ -326,7 +427,7 @@ def trace_wide_kernel(a_words, b_words, astart, bstart, abpos, bbpos, alim,
         counter.data_ptr(), trace.data_ptr(), nseg.data_ptr(),
         dsum.data_ptr(), _cuda.stream_ptr(abpos))
     _cuda.check(err, "wide_trace_kernel")
-    trace_wave.launches += S > 0        # no extents: nothing launched
+    _cuda.count_launch(trace_wave, S)
     return trace, nseg, dsum
 
 

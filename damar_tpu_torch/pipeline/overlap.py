@@ -19,10 +19,16 @@ not force through (no host C tiers: the port has none).  Results are
 byte-identical to damar_tpu on that route.
 
 Device arrays live in each block's `cache` (uploads, packed words, the
-A-side index, the trace pool) for as long as the block object does.
+A-side index, the trace pool) until release_device_buffers drops them
+or the block object goes.  A sweep over many pairs runs
+overlap_pairs_pipelined: pair N's trace and emit on a worker thread with
+its own CUDA stream while the caller's thread seeds and extends pair
+N + 1.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import logging
 import time
 from functools import partial
 
@@ -39,7 +45,7 @@ from damar_tpu_torch.ops.seeding import (canonical_index_dev,
                                          quantize_bits)
 from damar_tpu_torch.ops.sort import pack_fields, radix_sort_packed
 from damar_tpu_torch.ops.wave_bp import extend_wave_bp, trace_wave_bp
-from damar_tpu_torch.ops.wave_wide import trace_wave
+from damar_tpu_torch.ops.wave_wide import extend_wave_wide, trace_wave
 from damar_tpu_torch.ops.words import pack_bases
 
 EXT_KEYS = ("aread", "bread", "abpos", "aepos", "bbpos", "bepos",
@@ -48,6 +54,20 @@ EXT_KEYS = ("aread", "bread", "abpos", "aepos", "bbpos", "bepos",
 # launch's [S, max_segs, 2] int32 trace buffer may take; a larger bucket
 # is split into several launches
 TRACE_BUF_BYTES = 1 << 30
+# a sweep prefetches the next pair's uploads only for blocks up to this
+# capacity
+PREFETCH_CAP = 1 << 27
+
+log = logging.getLogger(__name__)
+
+
+def _dp_kernel(cfg: OverlapConfig) -> str:
+    """cfg.dp_kernel, checked: "bp" (K1 extends, K2 traces, K3 retries)
+    or "wide" (K3 extends and traces)."""
+    if cfg.dp_kernel not in ("bp", "wide"):
+        raise ValueError(f"dp_kernel must be 'bp' or 'wide', got "
+                         f"{cfg.dp_kernel!r}")
+    return cfg.dp_kernel
 
 
 def _mask_fp(mask) -> bytes | None:
@@ -78,6 +98,25 @@ def _rc_cached(blk: ReadBlock) -> ReadBlock:
         rc = revcomp_block(blk)
         blk.cache["rc_block"] = rc
     return rc
+
+
+def release_device_buffers(blk: ReadBlock) -> None:
+    """Drop a block's cached device buffers (the bases/read_id uploads,
+    packed words and starts, the trace pool, the device A-side index,
+    and the same on its cached rc twin).  The caches pin device memory
+    for as long as the block object lives, so a sweep over many blocks
+    bounds how many stay resident.  Host-side caches (the rc twin's
+    bases) are kept.  A pair state that overlap_pair_device returned
+    holds its own references, so its emit is not affected."""
+    blk.cache.pop("dev_arrs", None)
+    blk.cache.pop("trace_pool", None)
+    ent = blk.cache.get("a_index")
+    if ent is not None and ent[0][0].startswith("dev3"):
+        blk.cache.pop("a_index", None)
+    rc = blk.cache.get("rc_block")
+    if rc is not None:
+        rc.cache.pop("dev_arrs", None)
+        rc.cache.pop("trace_pool", None)
 
 
 def _dev_arr(blk: ReadBlock, name: str, device):
@@ -248,15 +287,23 @@ def _extend_all_dev(blk_a: ReadBlock, blk_b: ReadBlock,
                                         b_st, rb=rb, pb=pb)
     stats["seeds"] += m_d
     a_words = _packed_words_of(blk_a, device)
+    wide = _dp_kernel(cfg) == "wide"
     P1 = cfg.ext_phase1_rows
-    two_phase = 0 < P1 < cfg.max_read_len
+    # the wide extension reports no still-active units: one phase
+    two_phase = 0 < P1 < cfg.max_read_len and not wide
     res = []
-    # one K1 launch per phase and orientation, over every unit slot
+    # bp: one K1 launch per phase and orientation, over every unit slot;
+    # wide: one extension per orientation, a K3 chunk launch per R rows
     for u, blk in ((part0, blk_b), (part1, blk_b_rc)):
-        run = partial(extend_wave_bp, a_words, _packed_words_of(blk, device),
-                      u["u_ao"], u["u_bo"], dirs=u["u_rev"], R=cfg.bp_chunk,
-                      max_rows=cfg.max_read_len, diff_cost=cfg.diff_cost,
-                      xdrop=cfg.xdrop, packed=True)
+        kw = dict(dirs=u["u_rev"], max_rows=cfg.max_read_len,
+                  diff_cost=cfg.diff_cost, xdrop=cfg.xdrop, packed=True)
+        if wide:
+            kw["W"] = cfg.band_width
+        else:
+            kw["R"] = cfg.bp_chunk
+        run = partial(extend_wave_wide if wide else extend_wave_bp, a_words,
+                      _packed_words_of(blk, device), u["u_ao"], u["u_bo"],
+                      **kw)
         if not two_phase:
             res.append(run(u["u_alim"], u["u_blim"])[:3])
             continue
@@ -541,15 +588,17 @@ def _trace_pool(blk_a, blk_b, blk_b_rc, blk_a_rc, emit_mirrors, device):
 def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
                      kept_parts: list[dict], cfg: OverlapConfig,
                      emit_mirrors: bool = True, stats: dict | None = None,
-                     blk_b_rc=None, blk_a_rc=None, *, device
+                     blk_b_rc=None, blk_a_rc=None, *, pool, device
                      ) -> tuple[LasFile, LasFile]:
     """Trace pass + columnar .las assembly for deduped extents.
 
     kept_parts: columnar extent dicts (aread/bread LOCAL ids, .las
     coordinates, a per-dict 'comp' flag).  Returns (las_a, mirrored
-    las_b); las_b is empty unless emit_mirrors.  Extents the bp trace
-    kernel cannot force through are retried on the wide band; those
-    that fail again are dropped (counted in stats)."""
+    las_b); las_b is empty unless emit_mirrors.  pool: the _trace_pool
+    result to trace over (the caller's, never rebuilt here: the blocks'
+    caches may be gone by now).  Extents the main
+    trace kernel cannot force through are retried on the wide band;
+    those that fail again are dropped (counted in stats)."""
     t_fs = time.time()
     if stats is None:
         stats = {}
@@ -562,8 +611,7 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
     sb = blk_b.starts.astype(np.int64)
     alen = blk_a.rlen.astype(np.int32)
     blen = blk_b.rlen.astype(np.int32)
-    pool, OA, OBF, OBC, OAR = _trace_pool(blk_a, blk_b, blk_b_rc,
-                                          blk_a_rc, emit_mirrors, device)
+    pool, OA, OBF, OBC, OAR = pool
 
     def units_of(kept: dict, mirrored: bool) -> dict:
         """Per-record trace-unit arrays for one (part, role) group."""
@@ -688,17 +736,23 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
     stats["t_trace_setup"] = round(time.time() - t_fs, 3)
     retries: list = []
     t0 = time.time()
+    wide_kernel = partial(trace_wave, W=cfg.band_width)
+    # the main trace: the bp trace kernel (K2), or under dp_kernel="wide"
+    # the wide trace itself
+    main_kernel = wide_kernel if _dp_kernel(cfg) == "wide" else None
     if groups:
         run_round({k: np.concatenate([g[k] for g in groups])
-                   for k in UKEYS}, None, retries)
+                   for k in UKEYS}, main_kernel, retries)
     stats["t_trace_main"] = round(time.time() - t0, 3)
-    # extents the 32-diagonal band could not force through: retry on the
-    # wide 128-lane band (the device route's only retry tier)
+    # extents the main trace could not force through: retry on the wide
+    # 128-lane band (the device route's only retry tier; under
+    # dp_kernel="wide" the same kernel again, as in the reference, so
+    # they fail again and count as dropped)
     t_rt = time.time()
     stats["trace_retries"] = sum(len(p["ar"]) for p in retries)
     if retries:
         stats["trace_retries_wide"] = stats["trace_retries"]
-        run_round(retries, partial(trace_wave, W=cfg.band_width), None)
+        run_round(retries, wide_kernel, None)
     stats["t_trace_retry"] = round(time.time() - t_rt, 3)
     t_fin = time.time()
     ca = LasColumns.concat(cols_a)
@@ -725,18 +779,24 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
 
 
 def _sync(device) -> None:
+    """Wait for the calling thread's stream only: in a sweep the other
+    thread's stream is busy with another pair."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
                         cfg: OverlapConfig, self_block: bool,
                         mask_a=None, mask_b=None,
                         hit_cap: int = 1 << 21, seed_cap: int = 1 << 17,
-                        emit_mirrors: bool = True, *, device) -> dict:
+                        emit_mirrors: bool = True,
+                        size_hints: dict | None = None, *, device) -> dict:
     """The device phases of a block pair: seeding -> extension ->
-    extent dedupe.  Returns a state dict for overlap_pair_emit.
-    mask_a/mask_b: optional bool[cap] soft masks (numpy).  device:
+    extent dedupe.  Returns a state dict for overlap_pair_emit, which
+    holds its own references to every device tensor the emit reads (the
+    trace pool), so a caller may release or clear the blocks' caches
+    before the emit has run.  mask_a/mask_b: optional bool[cap] soft
+    masks (numpy).  size_hints: see overlap_block_pair.  device:
     required, as in overlap_block_pair."""
     device = torch.device(device)
     blk_b_rc = _rc_cached(blk_b)
@@ -772,6 +832,13 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
     kw = dict(mask_a=am, mask_b=bm, upper_only=self_block,
               hit_cap=hit_cap, seed_cap=seed_cap, a_index=a_index,
               self_pair=self_block)
+    # hints are a running max of exact measured totals, passed unpadded:
+    # the buffer caps are pow2-bucketed downstream, and an undershoot
+    # costs one exact grow-retry
+    if size_hints and size_hints.get("raw"):
+        kw["raw_hint"] = size_hints["raw"]
+    if size_hints and size_hints.get("nnz"):
+        kw["emit_hint"] = size_hints["nnz"]
     seeds = run_seeding(kw)
     # overflow retries grow whichever fixed buffer saturated: the raw
     # hit buffer (up to hit_cap), the seed buffer (up to 4x the
@@ -794,6 +861,12 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         if seeds["total_emit"] > seeds["tcap"]:
             kw = dict(kw, emit_hint=seeds["total_emit"])
         seeds = run_seeding(kw)
+    if size_hints is not None:
+        size_hints["raw"] = max(seeds["total_hits"],
+                                size_hints.get("raw", 0) // 2)
+        if seeds["total_emit"]:
+            size_hints["nnz"] = max(seeds["total_emit"],
+                                    size_hints.get("nnz", 0) // 2)
     stats["seed_overflow"] = seeds["overflow"]
     _sync(device)
     stats["t_seed"] = round(time.time() - t_ph, 3)
@@ -809,20 +882,41 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         kp["comp"] = p["comp"]
     stats["kept"] = sum(p["n"] for p in kept_parts)
     stats["t_dedupe"] = round(time.time() - t_ph, 3)
+    t_ph = time.time()
+    pool = _trace_pool(blk_a, blk_b, blk_b_rc, blk_a_rc, emit_mirrors,
+                       device)
+    _sync(device)
+    stats["t_pool"] = round(time.time() - t_ph, 3)
+    # what this thread's stream queued (the pool's pack) must be done
+    # before another stream reads it
+    ready = None
+    if device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(device))
     return dict(blk_a=blk_a, blk_b=blk_b, kept_parts=kept_parts, cfg=cfg,
                 emit_mirrors=emit_mirrors, stats=stats, blk_b_rc=blk_b_rc,
-                blk_a_rc=blk_a_rc, device=device)
+                blk_a_rc=blk_a_rc, pool=pool, ready=ready, device=device)
 
 
-def overlap_pair_emit(state: dict) -> tuple[LasFile, LasFile, dict]:
-    """Trace + .las emission for an overlap_pair_device state."""
+def overlap_pair_emit(state: dict, stream=None
+                      ) -> tuple[LasFile, LasFile, dict]:
+    """Trace + .las emission for an overlap_pair_device state.  stream:
+    a CUDA stream to run on (a sweep's emit thread has its own); it
+    first waits for what the device phases queued, and is drained before
+    the state's tensors can be let go."""
+    if stream is not None:
+        with torch.cuda.stream(stream):
+            stream.wait_event(state["ready"])
+            out = overlap_pair_emit(state)
+            stream.synchronize()
+        return out
     stats = state["stats"]
     t0 = time.time()
     las_a, las_b = las_from_extents(
         state["blk_a"], state["blk_b"], state["kept_parts"], state["cfg"],
         emit_mirrors=state["emit_mirrors"], stats=stats,
         blk_b_rc=state["blk_b_rc"], blk_a_rc=state["blk_a_rc"],
-        device=state["device"])
+        pool=state["pool"], device=state["device"])
     stats["t_trace"] = round(time.time() - t0, 3)
     return las_a, las_b, stats
 
@@ -831,7 +925,8 @@ def overlap_block_pair(blk_a: ReadBlock, blk_b: ReadBlock,
                        cfg: OverlapConfig, self_block: bool,
                        mask_a=None, mask_b=None,
                        hit_cap: int = 1 << 21, seed_cap: int = 1 << 17,
-                       emit_mirrors: bool = True, *, device
+                       emit_mirrors: bool = True,
+                       size_hints: dict | None = None, *, device
                        ) -> tuple[LasFile, LasFile, dict]:
     """Overlap all reads of block A against block B (both orientations)
     on `device`, which has no default: "cuda" runs the CUDA kernels,
@@ -843,9 +938,76 @@ def overlap_block_pair(blk_a: ReadBlock, blk_b: ReadBlock,
     empty unless emit_mirrors.  For a self block, callers merge las_a +
     las_b.  The device arrays a pass builds (uploads, the A-side index,
     the reverse-complement block, the trace pool) stay in the blocks'
-    caches, so a second pass over the same block objects skips them."""
+    caches, so a second pass over the same block objects skips them.
+
+    size_hints: optional mutable dict carried across pairs by a sweep.
+    Hit totals are similar between pairs of one dataset, so the previous
+    pairs' measured totals size this pair's hit buffers (a running max,
+    halved per pair); the overflow retry keeps an undersized guess
+    correct, so hints never change the output."""
     state = overlap_pair_device(
         blk_a, blk_b, cfg, self_block, mask_a=mask_a, mask_b=mask_b,
         hit_cap=hit_cap, seed_cap=seed_cap, emit_mirrors=emit_mirrors,
-        device=device)
+        size_hints=size_hints, device=device)
     return overlap_pair_emit(state)
+
+
+def _prefetch(job: dict, device) -> None:
+    """Upload the next pair's blocks ahead of their pair (into the
+    residency cache the pair will hit), for blocks up to PREFETCH_CAP.
+    A failure is logged, not raised: the same upload then fails again,
+    loudly, in the pair itself."""
+    try:
+        for b in (job.get("blk_a"), job.get("blk_b")):
+            if b is not None and b.cap <= PREFETCH_CAP:
+                _dev_arr(b, "bases", device)
+                _dev_arr(b, "read_id", device)
+    except Exception:
+        log.warning("prefetch of the next pair's blocks failed",
+                    exc_info=True)
+
+
+def overlap_pairs_pipelined(jobs, cfg: OverlapConfig, *, device):
+    """Pipelined sweep over block pairs: pair N's trace + .las emit
+    (overlap_pair_emit) runs on a one-thread pool, on a CUDA stream of
+    its own, while the caller's thread runs pair N + 1's device phases
+    (overlap_pair_device).  The outputs are those of a plain loop of
+    overlap_block_pair.
+
+    jobs: iterable of dicts with blk_a, blk_b, self_block and optional
+    overlap_pair_device keyword arguments, plus an optional "tag" passed
+    through.  Yields (tag, las_a, las_b, stats) in submission order.
+    The next job is pulled only after the current pair's device phases:
+    a job generator may clear or evict block caches as a side effect of
+    iteration (planner.run_overlap_plan does)."""
+    device = torch.device(device)
+
+    def device_phases(job):
+        job = dict(job)
+        tag = job.pop("tag", None)
+        return tag, overlap_pair_device(
+            job.pop("blk_a"), job.pop("blk_b"), cfg, job.pop("self_block"),
+            device=device, **job)
+
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    ex = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    try:
+        pending = None
+        it = iter(jobs)
+        job = next(it, None)
+        while job is not None:
+            tag, state = device_phases(job)
+            nxt = next(it, None)
+            if nxt is not None:
+                _prefetch(nxt, device)
+            if pending is not None:
+                ptag, fut = pending
+                yield (ptag,) + fut.result()
+            pending = (tag, ex.submit(overlap_pair_emit, state, stream))
+            del state
+            job = nxt
+        if pending is not None:
+            ptag, fut = pending
+            yield (ptag,) + fut.result()
+    finally:
+        ex.shutdown(wait=True)

@@ -1,0 +1,298 @@
+"""Pipeline planning and idempotent execution of the block sweep
+(HPC.daligner-style job matrices: independent jobs that meet through
+files), the port of damar_tpu.pipeline.planner:
+
+  * plan_block_pairs: the N*(N+1)/2 block-pair matrix with per-pair
+    .las outputs and merge steps, as a data structure.
+  * Manifest: done-marker bookkeeping, so a restarted run resumes
+    exactly where it stopped (every stage idempotent, checkpointed in
+    files).
+  * run_overlap_plan: executes the matrix on one device (pipelined over
+    pairs: overlap.overlap_pairs_pipelined), writing per-pair sorted
+    .las files and done markers, then merging per A block.
+
+plan_masking and render_script are not ported yet (they wait for the
+masking and command-line slices).
+"""
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+
+
+@dataclass
+class Job:
+    name: str
+    kind: str              # "overlap" | "merge" | "check"
+    args: dict
+    deps: list[str] = field(default_factory=list)
+
+
+def plan_block_pairs(db_root: str, nblocks: int,
+                     las_dir: str = ".") -> list[Job]:
+    """The block-pair job matrix + per-A-block merge tree."""
+    jobs: list[Job] = []
+    for i in range(1, nblocks + 1):
+        pair_outputs = []
+        for j in range(1, nblocks + 1):
+            if j < i:
+                continue  # pair (j, i) covers it symmetrically
+            name = f"overlap.{i}.{j}"
+            jobs.append(Job(
+                name=name, kind="overlap",
+                args=dict(db=db_root, a_block=i, b_block=j,
+                          out_a=os.path.join(
+                              las_dir, f"{db_root}.{i}.{db_root}.{j}.las"),
+                          out_b=os.path.join(
+                              las_dir, f"{db_root}.{j}.{db_root}.{i}.las")),
+            ))
+        ins = [os.path.join(las_dir, f"{db_root}.{i}.{db_root}.{j}.las")
+               for j in range(1, nblocks + 1)]
+        jobs.append(Job(
+            name=f"merge.{i}", kind="merge",
+            args=dict(inputs=ins,
+                      out=os.path.join(las_dir, f"{db_root}.{i}.las")),
+            deps=[f"overlap.{min(i, j)}.{max(i, j)}"
+                  for j in range(1, nblocks + 1)],
+        ))
+        jobs.append(Job(
+            name=f"check.{i}", kind="check",
+            args=dict(las=os.path.join(las_dir, f"{db_root}.{i}.las"),
+                      db=db_root),
+            deps=[f"merge.{i}"],
+        ))
+    return jobs
+
+
+class Manifest:
+    """Done-marker bookkeeping in a JSONL file: each completed job
+    appends one record; a restarted run skips completed jobs."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.done: dict[str, dict] = {}
+        self.reload()
+
+    def reload(self) -> None:
+        """Re-read the JSONL from disk: on a shared filesystem other
+        hosts' appended done-markers become visible (the multi-host
+        rendezvous).  Unparseable lines (torn multi-writer appends on
+        non-POSIX filesystems) are skipped, not fatal — a lost marker
+        only means the idempotent job reruns."""
+        if os.path.exists(self.path):
+            with open(self.path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue
+                    self.done[rec["name"]] = rec
+
+    def is_done(self, name: str) -> bool:
+        return name in self.done
+
+    def mark(self, name: str, **info) -> None:
+        rec = {"name": name, **info}
+        self.done[name] = rec
+        # one O_APPEND write syscall per record: atomic on POSIX local
+        # filesystems, so concurrent hosts' lines don't interleave
+        fd = os.open(self.path, os.O_WRONLY | os.O_APPEND | os.O_CREAT,
+                     0o644)
+        try:
+            os.write(fd, (json.dumps(rec) + "\n").encode())
+        finally:
+            os.close(fd)
+
+    def claim(self, name: str, stale_s: float = 3600.0) -> bool:
+        """Exclusive claim of a job across hosts via an O_EXCL lock
+        file next to the manifest.  Returns True when THIS process owns
+        the job.  A lock older than stale_s (a host died mid-job) is
+        broken and re-claimed."""
+        import time
+        lock = f"{self.path}.{name}.lock"
+        for _ in range(2):
+            try:
+                fd = os.open(lock, os.O_WRONLY | os.O_CREAT | os.O_EXCL,
+                             0o644)
+                os.write(fd, f"{os.getpid()} {time.time()}\n".encode())
+                os.close(fd)
+                return True
+            except FileExistsError:
+                try:
+                    age = time.time() - os.path.getmtime(lock)
+                except OSError:
+                    continue     # lock vanished: retry the claim
+                if age <= stale_s:
+                    return False
+                try:
+                    os.remove(lock)      # stale: break and retry
+                except OSError:
+                    return False
+        return False
+
+
+def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
+                     manifest_path: str = None, verbose: bool = True,
+                     mask_names: list[str] | None = None,
+                     nhosts: int = 1, host_id: int = 0,
+                     hit_cap: int | None = None,
+                     seed_cap: int | None = None, *, device) -> dict:
+    """Execute the overlap job matrix for a split DB on `device` ("cuda",
+    or "cpu" for the plain kernel versions; no default), idempotently.
+
+    Returns stats.  Each pair runs the device pipeline
+    (overlap.overlap_pairs_pipelined).  With nhosts > 1, this host
+    processes only its round-robin slice of the pair matrix
+    (parallel.distributed.host_pair_slice): launch one process per host,
+    sharing the filesystem; the per-A-block merge runs once every pair
+    of that block is marked done in the shared manifest (any host may
+    perform it).  mask_names: interval tracks of the DB whose union
+    soft-masks the seeding (daligner -m).  hit_cap/seed_cap: the seeding
+    buffer caps of every pair (overlap_pair_device's defaults when left
+    out; blocks of tens of Mbp need larger ones).
+    """
+    import time
+    from damar_tpu_torch.core.blocks import block_from_db
+    from damar_tpu_torch.formats import dazzdb, las as lasmod, tracks
+    from damar_tpu_torch.ops.kmers import mask_vector_from_track
+    from damar_tpu_torch.parallel.distributed import host_pair_slice
+    from damar_tpu_torch.pipeline.overlap import (overlap_pairs_pipelined,
+                                                  release_device_buffers)
+
+    db = dazzdb.DazzDB.open(db_path)
+    d, root = os.path.split(dazzdb.stub_path(db_path))
+    root = root[:-3]
+    las_dir = las_dir or d
+    manifest = Manifest(manifest_path or
+                        os.path.join(las_dir, f".{root}.overlap.manifest"))
+    n = max(db.nblocks, 1)
+    stats = {"pairs": 0, "skipped": 0, "overlaps": 0}
+    blocks = {}
+    masks = {}
+    caps = {k: v for k, v in (("hit_cap", hit_cap), ("seed_cap", seed_cap))
+            if v is not None}
+
+    def get_block(i):
+        if i not in blocks:
+            blocks[i] = block_from_db(db, i)
+            if mask_names:
+                blk = blocks[i]
+                per_read = [np.zeros(0, np.int32)] * blk.nreads
+                for name in mask_names:
+                    if not tracks.track_exists(db_path, name):
+                        continue
+                    t = tracks.read_track(db_path, name)
+                    for j, rid in enumerate(blk.ids):
+                        per_read[j] = tracks.merge_interval_lists(
+                            per_read[j], t.data[int(rid)])
+                masks[i] = mask_vector_from_track(
+                    per_read, blk.starts, blk.cap)
+        return blocks[i], masks.get(i)
+
+    pairs = host_pair_slice(n, nhosts, host_id)
+    size_hints: dict = {}
+    prev_a = None
+    # bound device-buffer residency: a block's uploads, packed words and
+    # rc twin pin device memory; an LRU over B blocks keeps at most
+    # max_resident blocks' buffers alive (the A block is pinned
+    # separately for its row).  A pair still in its emit keeps what it
+    # reads through its own state.
+    max_resident = int(os.environ.get("DAMAR_RESIDENT_BLOCKS", "8"))
+    lru: list[int] = []
+
+    def touch(idx: int, a_block: int):
+        if idx in lru:
+            lru.remove(idx)
+        lru.append(idx)
+        while len(lru) > max_resident:
+            # oldest entry that is not the active A row
+            for q, victim in enumerate(lru):
+                if victim != a_block:
+                    lru.pop(q)
+                    if victim in blocks:
+                        release_device_buffers(blocks[victim])
+                    break
+            else:
+                break
+
+    def job_iter():
+        nonlocal prev_a
+        for i, j in pairs:
+            # the A-side index memo lives for the block's whole B row;
+            # drop it when the row advances so at most one block's index
+            # stays resident
+            if prev_a is not None and prev_a != i and prev_a in blocks:
+                blocks[prev_a].cache.clear()
+            prev_a = i
+            name = f"overlap.{i}.{j}"
+            out_a = os.path.join(las_dir, f"{root}.{i}.{root}.{j}.las")
+            out_b = os.path.join(las_dir, f"{root}.{j}.{root}.{i}.las")
+            if manifest.is_done(name) and os.path.exists(out_a):
+                stats["skipped"] += 1
+                continue
+            blk_a, mask_a = get_block(i)
+            blk_b, mask_b = get_block(j)
+            touch(i, i)
+            touch(j, i)
+            yield dict(tag=(i, j, name, out_a, out_b, time.time()),
+                       blk_a=blk_a, blk_b=blk_b, self_block=(i == j),
+                       mask_a=mask_a, mask_b=mask_b,
+                       size_hints=size_hints, **caps)
+
+    # pipelined sweep: pair N's trace + .las encode runs on a worker
+    # thread while the device seeds and extends pair N+1
+    for tag, la, lb, st in overlap_pairs_pipelined(job_iter(), cfg,
+                                                   device=device):
+        i, j, name, out_a, out_b, t0 = tag
+        if i != j:
+            lasmod.write_las(out_a, la)
+            lasmod.write_las(out_b, lb)
+        else:
+            # self pair: mirrors belong to the same block pile set
+            both = lasmod.LasFile.concat([la, lb])
+            both.sort()
+            lasmod.write_las(out_a, both)
+        manifest.mark(name, novl=la.novl, wall=round(time.time() - t0, 2))
+        stats["pairs"] += 1
+        stats["overlaps"] += la.novl
+        stats.setdefault("pair_stats", []).append(dict(st, pair=name))
+        if verbose:
+            print(f"# {name}: {la.novl} overlaps "
+                  f"({time.time() - t0:.1f}s) {st}")
+    # merge per A block, only once EVERY pair touching the block is done
+    # (multi-host runs reach this point per host; the manifest on the
+    # shared filesystem is the rendezvous)
+    manifest.reload()
+    for i in range(1, n + 1):
+        name = f"merge.{i}"
+        out = os.path.join(las_dir, f"{root}.{i}.las")
+        if manifest.is_done(name) and os.path.exists(out):
+            continue
+        ready = all(
+            manifest.is_done(f"overlap.{min(i, j)}.{max(i, j)}")
+            for j in range(1, n + 1))
+        if not ready:
+            stats.setdefault("merges_deferred", 0)
+            stats["merges_deferred"] += 1
+            continue
+        # exclusive cross-host claim + write-to-tmp + atomic rename:
+        # several hosts can reach readiness simultaneously
+        if not manifest.claim(name):
+            continue
+        ins = []
+        for j in range(1, n + 1):
+            p = os.path.join(las_dir, f"{root}.{i}.{root}.{j}.las")
+            if os.path.exists(p):
+                ins.append(p)
+        if ins:
+            tmp = f"{out}.tmp.{os.getpid()}"
+            lasmod.merge_las(ins, tmp)
+            os.replace(tmp, out)
+            manifest.mark(name, inputs=len(ins))
+    return stats

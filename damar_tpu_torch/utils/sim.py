@@ -23,6 +23,19 @@ class SimReads:
     # genome spans (start/end describe its FIRST segment only)
     chimeric: np.ndarray | None = None
 
+    def true_overlap(self, i: int, j: int, min_olap: int = 1) -> bool:
+        """Ground-truth span overlap, circular-aware: reads sampled
+        across the origin wrap (end > G in the doubled coordinate), so
+        each read is tested at both of its circle representatives."""
+        G = len(self.genome)
+        for di in (0, G):
+            for dj in (0, G):
+                lo = max(self.start[i] + di, self.start[j] + dj)
+                hi = min(self.end[i] + di, self.end[j] + dj)
+                if hi - lo >= min_olap:
+                    return True
+        return False
+
 
 def _revcomp(codes: np.ndarray) -> np.ndarray:
     return (3 - codes[::-1]).astype(np.uint8)
@@ -125,6 +138,16 @@ def sample_reads(genome: np.ndarray, coverage: float, mean_len: int,
         strand=np.array(strands), err=err,
         chimeric=np.array(chims, dtype=bool),
     )
+
+
+def write_sim_fasta(path: str, sim: SimReads) -> None:
+    """The reads as FASTA, each header carrying its ground truth."""
+    from damar_tpu_torch.formats.fasta import write_fasta
+    headers = [
+        f"sim/{i}/0_{len(r)} start={sim.start[i]} end={sim.end[i]} "
+        f"strand={sim.strand[i]}"
+        for i, r in enumerate(sim.reads)]
+    write_fasta(path, headers, sim.reads)
 
 
 def unit_batch(rng: np.random.Generator, S: int, min_len: int = 100,

@@ -213,3 +213,53 @@ def test_no_work_launches_nothing(dev):
         assert trace.shape == (0, 8, 2) and nseg.numel() == 0
     torch.cuda.synchronize()
     assert [f.launches for f in counters] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dirs", ["mixed", "fwd"])
+def test_extend_wave_wide_on_card_matches_cpu(dev, dirs):
+    """The wide extension over dp_rows_kernel (one launch per 128 rows)
+    == over dp_rows_plain, on a fuzz batch and at the pool's edges."""
+    rng = np.random.default_rng(17)
+    for batch in (unit_batch(rng, 300), edge_units(rng, 64)):
+        A, B, ao, bo, alim, blim, rv = (torch.as_tensor(x) for x in batch)
+        kw = dict(dirs=rv) if dirs == "mixed" else dict(reverse=False)
+        cpu = wave_wide.extend_wave_wide(A, B, ao, bo, alim, blim, **kw)
+        before = wave_wide.dp_rows.launches
+        kw = {k: v.to(dev) if torch.is_tensor(v) else v
+              for k, v in kw.items()}
+        card = wave_wide.extend_wave_wide(
+            *(x.to(dev) for x in (A, B, ao, bo, alim, blim)), **kw)
+        assert wave_wide.dp_rows.launches > before
+        _same(cpu, card)
+
+
+@pytest.mark.cuda
+def test_pipelined_on_card_matches_sequential(dev):
+    """Two small pairs through overlap_pairs_pipelined on the card (the
+    emit on a worker thread with its own stream) == a loop of
+    overlap_block_pair there."""
+    from damar_tpu_torch.core.blocks import block_from_reads
+    from damar_tpu_torch.core.config import OverlapConfig
+    from damar_tpu_torch.pipeline import overlap as ov
+    from damar_tpu_torch.utils.sim import make_genome, sample_reads
+    reads = sample_reads(make_genome(40_000, seed=3), coverage=10.0,
+                         mean_len=3000, err=0.14, seed=4).reads
+    h = len(reads) // 2
+    a = block_from_reads(reads[:h], ids=np.arange(h))
+    b = block_from_reads(reads[h:], ids=np.arange(h, len(reads)))
+    cfg = OverlapConfig()
+    pairs = [(a, a, True), (a, b, False)]
+    want = [ov.overlap_block_pair(x, y, cfg, s, device=dev)
+            for x, y, s in pairs]
+    sh = {}
+    jobs = [dict(tag=k, blk_a=x, blk_b=y, self_block=s, size_hints=sh)
+            for k, (x, y, s) in enumerate(pairs)]
+    got = list(ov.overlap_pairs_pipelined(jobs, cfg, device=dev))
+    assert [g[0] for g in got] == [0, 1]
+    for (_, la, lb, _), (wa, wb, _) in zip(got, want):
+        assert la.novl == wa.novl > 0
+        for x, y in ((la, wa), (lb, wb)):
+            for k in ("headers", "trace", "offsets"):
+                assert np.array_equal(getattr(x.columns, k),
+                                      getattr(y.columns, k))

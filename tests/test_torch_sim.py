@@ -63,14 +63,15 @@ def test_blocks_byte_equal():
 
 def test_config_defaults_match():
     """Every field of the port's config is the reference's, with the same
-    default; the reference's extra fields are kernel switches whose
-    defaults select the one route the port has."""
+    default (dp_kernel among them: "bp", with "wide" the other legal
+    value); the reference's extra fields are launch widths and the
+    Pallas switch, which have no counterpart in the port."""
     from dataclasses import asdict
     ours, ref = asdict(OverlapConfig()), asdict(RefConfig())
     assert ours == {k: ref[k] for k in ours}
     assert set(ref) - set(ours) == {"seed_batch", "seed_batch_dev",
-                                    "use_pallas", "dp_kernel"}
-    assert ref["dp_kernel"] == "bp"
+                                    "use_pallas"}
+    assert ours["dp_kernel"] == "bp"
 
 
 def _small_las(tspace=100):
@@ -118,15 +119,30 @@ def test_check_las_reports_faults(tmp_path):
         read_las_columns(str(p))
 
 
+# every module of the port that holds code; the import check below must
+# have walked each of them
+PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
+    "core.blocks", "core.config", "formats.dazzdb", "formats.fasta",
+    "formats.las", "formats.oflags", "formats.tracks", "ops._cuda",
+    "ops.kmers", "ops.seeding", "ops.sort", "ops.wave_bp", "ops.wave_wide",
+    "ops.words", "parallel.distributed", "pipeline.overlap",
+    "pipeline.planner", "tools.compare_wave_bp",
+    "tools.profile_window", "utils.sim")]
+
+
 def test_port_imports_no_jax():
     """Run in a subprocess: this test process already imported jax."""
     code = (
         "import sys\n"
         "pre = set(sys.modules)\n"
         "import pkgutil, importlib, damar_tpu_torch\n"
+        "seen = set()\n"
         "for m in pkgutil.walk_packages(damar_tpu_torch.__path__, "
         "'damar_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    seen.add(m.name)\n"
+        f"missing = sorted(set({PORT_MODULES!r}) - seen)\n"
+        "assert not missing, missing\n"
         "bad = sorted(k for k in set(sys.modules) - pre if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'damar_tpu.')) or k == 'damar_tpu')\n"
         "print(bad)\n"
