@@ -79,8 +79,31 @@ Phases (any failure exits non-zero before the last line is printed):
      at CAP items) must equal their plain versions, so the sweep is held
      against the plain versions at its own shapes and not only against
      itself;
-then print one JSON line of per-kernel results and, last, the device
-line.
+  9. the stages from a DB on disk (damar_tpu/pipeline/run.py's phases
+     2-6, composed here as run.py composes them; run_stages): the main
+     unit's reads with 20 repeat copies and 20 tandems planted, written
+     as FASTA, made into a DB and split with cutoff 500 into 2 blocks of
+     ~25 Mbp; with MaskConfig(), ScrubConfig(), OverlapConfig() and the
+     sweep's caps: the dust track, the tan track per block (the datander
+     search and K1), overlap1 with both masks, the patch round (per
+     block LAstitch, the retrace of the needed rows on K3 against a
+     subset block of their B reads, LAq, LAfix; FIX.fasta -> FIX DB),
+     overlap2, and the scrub round (merge, sort, LAstitch, retrace, LAq,
+     LAgap, q/trim tracks, clip to trim, LArepeat, LAfilter).  Prints
+     each stage's wall and counts (dust and tan bp, the tandem search's
+     hits and seeds, retrace needs and drops, fixed reads and bp,
+     scrubbed, filtered and kept records) and the launches of the
+     phase; check_las clean on every .las it writes, every track
+     interval in its read and sorted; prints the filtered file's kept
+     records whose mirror is discarded; holds block 1's first K1 launch
+     of the tandem search and the scrub retrace's first two
+     wide_trace_kernel launches (capped at CAP items) against their
+     plain versions; runs the tandem search again under damar_tpu's
+     buffer caps and prints what they drop (fault 3g); and runs the
+     stages on a small DB of short reads on the card and on the CPU
+     path: every .las, track file and FIX.fasta byte-equal;
+then print one JSON line of per-kernel results (`stage_launches`: each
+kernel's launches in phase 9) and, last, the device line.
 """
 import argparse
 import filecmp
@@ -119,6 +142,13 @@ CAP = 16_384          # work items of a first launch held against plain
 GENOME_QUICK, QUICK_HIT_CAP, QUICK_SEED_CAP = 500_000, 1 << 25, 1 << 19
 # the sweep's unit: the main unit's genome scaled 4x, split into 4 blocks
 GENOME_SWEEP, SWEEP_BLOCKS = 10_000_000, 4
+# the stages' unit: the main unit's reads with repeats and tandems
+# planted, split into 2 blocks; the launches of its spied calls held
+# against the plain versions (the datander search's first K1 launch, the
+# scrub retrace's first two wide trace launches)
+STAGE_REPEATS, STAGE_TANDEMS, STAGE_BLOCKS = 20, 20, 2
+STAGE_HELD = {"tan": ("bp_extend_kernel", 1),
+              "scrub_retrace": ("wide_trace_kernel", 2)}
 
 # Bounds: the least time the card could take for a launch's work, the
 # larger of its int32 operations over the INT32 rate and its bytes (each
@@ -1164,6 +1194,383 @@ def report_profile(prof, wall: float, path: str | None) -> None:
         log(f"profile tables: {path}")
 
 
+def tracks_bad(track, rlen, empty_ok: bool = False) -> int:
+    """Reads whose track intervals leave the read or are not sorted (each
+    interval nonempty, or with empty_ok at least not reversed, and the
+    next starting at or after its end)."""
+    bad = 0
+    for i, d in enumerate(track.data):
+        iv = np.asarray(d, np.int64).reshape(-1, 2)
+        if len(iv) and ((iv[:, 0] < 0).any() or (iv[:, 1] > rlen[i]).any()
+                        or (iv[:, 0] > iv[:, 1] - (0 if empty_ok else 1)
+                            ).any()
+                        or (iv[1:, 0] < iv[:-1, 1]).any()):
+            bad += 1
+    return bad
+
+
+def kept_with_discarded_mirror(las) -> tuple[int, int]:
+    """(kept records whose mirror is discarded, kept records with no
+    mirror) of a filtered file.  A record's mirrors are the records of
+    its read pair with the roles swapped (same orientation): clipping to
+    the trim windows cuts each on its own A read's segment grid, so the
+    coordinates of a record and its mirror no longer reflect exactly."""
+    h = las.columns.headers.astype(np.int64)
+    ar, br, comp = h[:, 7], h[:, 8], h[:, 6] & 1
+    live = (h[:, 6] & 0x4) == 0
+    key = (ar << 33) | (br << 1) | comp
+    mkey = (br << 33) | (ar << 1) | comp
+    any_rec = set(key.tolist())
+    any_live = set(key[live].tolist())
+    m = mkey[live].tolist()
+    n_none = sum(k not in any_rec for k in m)
+    n_disc = sum(k in any_rec and k not in any_live for k in m)
+    return n_disc, n_none
+
+
+def run_stages(w: str, cfgs: tuple, dev, caps: dict, spy: dict | None = None,
+               log_walls: bool = True) -> dict:
+    """damar_tpu/pipeline/run.py's phases 2-6 on the split DB w/RAW.db,
+    as run.py composes them: dust and tandem tracks, overlap1 with those
+    masks, the patch round (per block: LAstitch -> retrace of the needed
+    rows against a subset block of their B reads -> LAq -> LAfix, then
+    FIX.fasta -> FIX DB split as RAW), overlap2, and scrub (merge ->
+    sort -> LAstitch -> retrace -> LAq -> LAgap -> q/trim tracks -> clip
+    to trim -> LArepeat -> LAfilter).  spy: a dict that receives, for
+    the tandem searches ("tan"), the patch retraces ("patch_retrace")
+    and the scrub retrace ("scrub_retrace"), each kernel's launches and
+    device ms under torch.profiler, and the launches (Spy.calls) of the
+    first tandem search and of the scrub retrace.  Returns the counts
+    and walls."""
+    from damar_tpu_torch.formats import tracks
+    from damar_tpu_torch.formats.fasta import revcomp, write_fasta
+    from damar_tpu_torch.pipeline import masking, scrub
+    from damar_tpu_torch.pipeline.run import _reads_subset_block
+    ocfg, mcfg, scfg = cfgs
+    raw_db, fix_db = f"{w}/RAW.db", f"{w}/FIX.db"
+    db = dazzdb.DazzDB.open(raw_db)
+    size_mb, cutoff = db.block_size_mb, db.cutoff
+    out = {"walls": {}}
+    t_stage = [time.time()]
+
+    def call(key, fn):
+        """fn(), and with spy its launches and device time under key."""
+        if spy is None:
+            return fn()
+        from torch.profiler import ProfilerActivity, profile
+        before = read_launches()
+        with Spy() as sp, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_records()
+            res = fn()
+            torch.cuda.synchronize()
+        ms, n = device_ms(prof)
+        acc = spy.setdefault(key, dict(launches=dict.fromkeys(ms, 0),
+                                       profiled=dict.fromkeys(ms, 0),
+                                       ms=dict.fromkeys(ms, 0.0),
+                                       calls=sp.calls))
+        after = read_launches()
+        for k in ms:
+            acc["launches"][k] += after[k] - before[k]
+            acc["profiled"][k] += n[k]
+            acc["ms"][k] += ms[k]
+        return res
+
+    def done(stage, **info):
+        t = time.time()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            t = time.time()
+        out["walls"][stage] = round(t - t_stage[0], 4)
+        out.update(info)
+        if log_walls:
+            log(f"stage {stage}: wall {out['walls'][stage]:.4f} s; "
+                + ", ".join(f"{k} {v}" for k, v in info.items()))
+        t_stage[0] = time.time()
+
+    seqs = [db.read_seq(i) for i in range(db.ureads)]
+    tracks.write_track(raw_db, masking.dust_track(seqs, mcfg))
+    del seqs
+    dust = tracks.read_track(raw_db, "dust")
+    done("dust", dust_bp=dust.masked_bp())
+    data = [np.zeros(0, np.int32)] * db.ureads
+    out["tan_search"] = []
+    for b in range(1, db.nblocks + 1):
+        blk = block_from_db(db, b)
+        st = {}
+        t = call("tan", lambda: masking.tandem_track(blk, ocfg, mcfg,
+                                                      stats=st, device=dev))
+        st["tan_bp"] = t.masked_bp()
+        out["tan_search"].append(st)
+        for j, rid in enumerate(blk.ids):
+            data[int(rid)] = t.data[j]
+        del blk
+    tracks.write_track(raw_db, tracks.Track("tan", data))
+    tan = tracks.read_track(raw_db, "tan")
+    done("tan", tan_bp=tan.masked_bp(), tan_search=out["tan_search"])
+    st = run_overlap_plan(raw_db, ocfg, verbose=False,
+                          mask_names=["dust", "tan"], device=dev, **caps)
+    st.pop("pair_stats", None)
+    done("overlap1", overlap1=st)
+    rlen_of = {i: int(db.reads["rlen"][i]) for i in range(db.ureads)}
+
+    def seqs_of_raw(i, comp):
+        s_ = db.read_seq(i)
+        return revcomp(s_) if comp else s_
+
+    parts, rt = [], []
+    for b in range(1, db.nblocks + 1):
+        full = lasmod.read_las(f"{w}/RAW.{b}.las")
+        stitched, needs = scrub.stitch_las(full, fuzz=scfg.stitch_fuzz)
+        dropped = 0
+        if len(needs):
+            sub_b = _reads_subset_block(db, stitched, needs, side="b")
+            dropped = call("patch_retrace", lambda: ov.retrace_rows(
+                stitched, needs, block_from_db(db, b), sub_b, ocfg,
+                device=dev))
+        rt.append((len(needs), dropped))
+        qual, _ = scrub.q_and_trim(stitched, rlen_of, scfg)
+        parts.extend(scrub.fix_reads(stitched, seqs_of_raw, rlen_of, qual,
+                                     scfg))
+        del full, stitched
+    write_fasta(f"{w}/FIX.fasta", [f"fixed/{p.src_read}/{p.part}_{len(p.seq)}"
+                                   for p in parts], [p.seq for p in parts])
+    del parts
+    dazzdb.create_db(fix_db, [f"{w}/FIX.fasta"])
+    fdb = dazzdb.db_split(fix_db, size_mb=size_mb, cutoff=cutoff)
+    done("patch", patch_retrace_needs_dropped=rt, fixed_reads=fdb.ureads,
+         fixed_bp=fdb.totlen, fix_blocks=fdb.nblocks)
+    st = run_overlap_plan(fix_db, ocfg, verbose=False, device=dev, **caps)
+    st.pop("pair_stats", None)
+    done("overlap2", overlap2=st)
+    frlen = {i: int(fdb.reads["rlen"][i]) for i in range(fdb.ureads)}
+    lasmod.merge_las([f"{w}/FIX.{b}.las" for b in range(1, fdb.nblocks + 1)],
+                     f"{w}/FIX.merged.las")
+    full = lasmod.read_las(f"{w}/FIX.merged.las")
+    full.sort()
+    stitched, needs = scrub.stitch_las(full, fuzz=scfg.stitch_fuzz)
+    del full
+    dropped = 0
+    if len(needs):
+        sub_a = _reads_subset_block(fdb, stitched, needs, side="a")
+        sub_b = _reads_subset_block(fdb, stitched, needs, side="b")
+        dropped = call("scrub_retrace", lambda: ov.retrace_rows(
+            stitched, needs, sub_a, sub_b, ocfg, device=dev))
+    idx = {i: i for i in range(fdb.ureads)}
+    qual, trim = scrub.q_and_trim(stitched, frlen, scfg)
+    breaks = scrub.gap_breaks(stitched, frlen, scfg)
+    trim = scrub.gap_trim(trim, breaks, ts=ocfg.tspace)
+    tracks.write_track(fix_db, scrub.q_track(qual, fdb.ureads, idx))
+    tracks.write_track(fix_db, scrub.trim_track(trim, fdb.ureads, idx))
+    stitched = scrub.clip_las_to_trim(stitched, frlen, trim)
+    lasmod.write_las(f"{w}/FIX.scrubbed.las", stitched)
+    trlen = np.array([max(trim.get(i, (0, frlen[i]))[1]
+                          - trim.get(i, (0, frlen[i]))[0], 0)
+                      for i in range(fdb.ureads)], np.int64)
+    rep = masking.repeat_track_relative(stitched, trlen, idx, fdb.ureads,
+                                        mcfg.rep_low, mcfg.rep_high)
+    tracks.write_track(fix_db, rep)
+    filt = scrub.filter_las(stitched,
+                            {i: int(trlen[i]) for i in range(fdb.ureads)},
+                            scfg, {i: rep.data[i] for i in range(fdb.ureads)})
+    lasmod.write_las(f"{w}/FIX.filtered.las", filt)
+    kept = int(((filt.columns.headers[:, 6] & 0x4) == 0).sum())
+    done("scrub", scrub_retrace_needs=len(needs),
+         scrub_retrace_dropped=dropped, breaks=sum(len(v) for v in breaks.values()),
+         scrubbed_records=stitched.novl, filtered_records=filt.novl,
+         kept_records=kept, repeats_bp=rep.masked_bp())
+    out.update(trlen=trlen, fdb=fdb, db=db)
+    return out
+
+
+def stage_files(w: str) -> list:
+    """The files a stage run writes that the card and CPU runs compare."""
+    return sorted(f for f in os.listdir(w)
+                  if f.endswith((".las", ".anno", ".data", ".fasta"))
+                  and not f.startswith("reads"))
+
+
+def stages_phase(dev, card: str) -> dict:
+    """Phase 9 (see the module docstring).  Returns the phase's numbers
+    and the launches of each kernel in it."""
+    from damar_tpu_torch.core.config import MaskConfig, ScrubConfig
+    from damar_tpu_torch.formats import tracks
+    from damar_tpu_torch.ops.seeding import (REF_TANDEM_HIT_CAP,
+                                             REF_TANDEM_SEED_CAP)
+    from damar_tpu_torch.pipeline import masking
+    w = tempfile.mkdtemp(prefix="damar_smoke_stages_")
+    try:
+        t0 = time.time()
+        sim = sample_reads(make_genome(GENOME, seed=SEED,
+                                       n_repeats=STAGE_REPEATS,
+                                       tandem=STAGE_TANDEMS),
+                           coverage=COVERAGE, mean_len=MEAN_LEN, err=ERR,
+                           seed=SEED + 1)
+        total_bp = sum(len(r) for r in sim.reads)
+        write_sim_fasta(f"{w}/reads.fasta", sim)
+        del sim
+        dazzdb.create_db(f"{w}/RAW.db", [f"{w}/reads.fasta"])
+        size_mb = -(-total_bp // (STAGE_BLOCKS * 1_000_000))
+        db = dazzdb.db_split(f"{w}/RAW.db", size_mb=size_mb, cutoff=500)
+        split = [int(db.reads["rlen"][db.block_reads(b)].sum())
+                 for b in range(1, db.nblocks + 1)]
+        log(f"stages: {db.ureads} reads, {total_bp} bp, split at {size_mb} "
+            f"Mbp with cutoff 500 into {db.nblocks} blocks of {split} bp; "
+            f"reads, FASTA, DB and split {time.time() - t0:.1f} s")
+        if db.nblocks != STAGE_BLOCKS:
+            raise SystemExit(f"chip_smoke: stages: {db.nblocks} blocks")
+        cfgs = (OverlapConfig(), MaskConfig(), ScrubConfig())
+        caps = dict(hit_cap=HIT_CAP, seed_cap=SEED_CAP)
+        spy = {}
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = run_stages(w, cfgs, dev, caps, spy=spy)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_launches()
+        missing = [k for k in MAIN_PATH if launches[k] <= 0]
+        if missing:
+            raise SystemExit(f"chip_smoke: kernels not launched by the "
+                             f"stages: {missing}")
+        log(f"stages (phases 2-6): wall {wall:.4f} s on {card}; launches "
+            f"{launches}")
+        # ---- checks: check_las, tracks, mirrors ----
+        t0 = time.time()
+        db, fdb, trlen = res["db"], res["fdb"], res["trlen"]
+        rl, frl = db.reads["rlen"], fdb.reads["rlen"]
+        n_las = 0
+        for f in sorted(os.listdir(w)):
+            if not f.endswith(".las"):
+                continue
+            lens = trlen if f in ("FIX.scrubbed.las", "FIX.filtered.las") \
+                else (rl if f.startswith("RAW") else frl)
+            problems = check_las(lasmod.read_las(f"{w}/{f}"), lens)
+            if problems:
+                raise SystemExit(f"chip_smoke: stages: check_las {f}: "
+                                 f"{problems[:5]}")
+            n_las += 1
+        bad = {name: tracks_bad(tracks.read_track(f"{w}/{d}.db", name), L)
+               for d, name, L in (("RAW", "dust", rl), ("RAW", "tan", rl),
+                                  ("FIX", "repeats", trlen))}
+        bad["trim"] = tracks_bad(tracks.read_track(f"{w}/FIX.db", "trim"),
+                                 frl, empty_ok=True)
+        if any(bad.values()):
+            raise SystemExit(f"chip_smoke: stages: reads with track "
+                             f"intervals out of their read or unsorted: "
+                             f"{bad}")
+        filt = lasmod.read_las(f"{w}/FIX.filtered.las")
+        mirror_disc, mirror_none = kept_with_discarded_mirror(filt)
+        log(f"stages: check_las clean on {n_las} files; dust, tan, trim and "
+            f"repeats intervals in their reads and sorted; filtered file: "
+            f"{mirror_disc} kept records whose mirror is discarded, "
+            f"{mirror_none} with no mirror ({time.time() - t0:.1f} s)")
+        # ---- the spied launches against the plain versions ----
+        t0 = time.time()
+        paths = {}
+        for what, name in (("tan", "bp_extend_kernel"),
+                           ("patch_retrace", "wide_trace_kernel"),
+                           ("scrub_retrace", "wide_trace_kernel")):
+            acc = spy.get(what)
+            if acc is None:
+                raise SystemExit(f"chip_smoke: stages: no {what} ran")
+            paths[what] = dict(kernel=name, launches=acc["launches"][name],
+                               ms=round(acc["ms"][name], 4),
+                               profiled_launches=acc["profiled"][name])
+            log(f"stages, {what}: {name} {acc['launches'][name]} launches "
+                f"({acc['profiled'][name]} in the profile), "
+                f"{acc['ms'][name]:.4f} ms device time on {card}")
+        held = {}
+        for what, (name, m) in STAGE_HELD.items():
+            calls = spy[what]["calls"].get(name, [])[:m]
+            if len(calls) < m:
+                raise SystemExit(f"chip_smoke: stages: {what} launched "
+                                 f"{name} {len(calls)} times")
+            held.setdefault(name, []).extend(
+                capped(name, a, kw) for a, kw, _ in calls)
+        del spy
+        hold_launches("stages", held)
+        log(f"stages: launches {{name: n}} held equal to their plain "
+            f"versions: { {k: len(v) for k, v in held.items()} } "
+            f"({time.time() - t0:.1f} s)")
+        # ---- fault 3g: the search again under damar_tpu's caps ----
+        t0 = time.time()
+        ocfg, mcfg, _ = cfgs
+        for b in range(1, db.nblocks + 1):
+            blk = block_from_db(db, b)
+            st = {}
+            t = masking.tandem_track(blk, ocfg, mcfg,
+                                     hit_cap=REF_TANDEM_HIT_CAP,
+                                     seed_cap=REF_TANDEM_SEED_CAP, stats=st,
+                                     device=dev)
+            sized = res["tan_search"][b - 1]
+            log(f"fault 3g, block {b}: sized buffers: total_hits "
+                f"{sized['total_hits']}, nhits {sized['nhits']}, seeds "
+                f"{sized['nseeds']} of {sized['total_seeds']}, tan bp "
+                f"{sized['tan_bp']}; damar_tpu's caps (hit_cap "
+                f"{REF_TANDEM_HIT_CAP}, seed_cap {REF_TANDEM_SEED_CAP}): "
+                f"nhits {st['nhits']} of "
+                f"{st['total_hits']}, seeds {st['nseeds']} of "
+                f"{st['total_seeds']}, tan bp {t.masked_bp()}")
+            del blk
+        log(f"fault 3g runs: {time.time() - t0:.1f} s")
+        # ---- a small DB: card == CPU path, file by file ----
+        t0 = time.time()
+        small = stage_small(dev)
+        log(f"stages, small DB: {small} ({time.time() - t0:.1f} s)")
+        return dict(launches=launches, wall_s=wall, walls=res["walls"],
+                    tan_bp=res["tan_bp"], dust_bp=res["dust_bp"],
+                    kept_records=res["kept_records"],
+                    filtered_records=res["filtered_records"],
+                    mirror_discarded=mirror_disc, paths=paths, small=small)
+    finally:
+        shutil.rmtree(w, ignore_errors=True)
+
+
+def stage_small(dev) -> dict:
+    """The stages on a small DB of short reads (<= 1,300 bp, 2 blocks of
+    1 Mbp), with the length thresholds lowered to fit them, on the card
+    and on the CPU path: every .las, track file and FIX.fasta byte-equal.
+    """
+    from damar_tpu_torch.core.config import MaskConfig, ScrubConfig
+    from damar_tpu_torch.formats.fasta import write_fasta
+    g = make_genome(400_000, seed=31, n_repeats=4, tandem=8)
+    s = sample_reads(g, coverage=6.4, mean_len=900, err=0.10, seed=32)
+    reads = [r for r in s.reads if len(r) <= 1300]
+    cum = np.cumsum([len(r) for r in reads])
+    reads = [r for r, c in zip(reads, cum) if c <= 1_500_000]
+    cfgs = (OverlapConfig(min_len=500), MaskConfig(tan_min_len=300),
+            ScrubConfig(min_trim_len=500, filter_min_len=500, anchor_min=200))
+    dirs = {}
+    base = tempfile.mkdtemp(prefix="damar_smoke_small_stages_")
+    try:
+        for d in (dev, "cpu"):
+            w = f"{base}/{'card' if d != 'cpu' else 'cpu'}"
+            os.makedirs(w)
+            write_fasta(f"{w}/reads.fasta",
+                        [f"r{i}" for i in range(len(reads))], reads)
+            dazzdb.create_db(f"{w}/RAW.db", [f"{w}/reads.fasta"])
+            dazzdb.db_split(f"{w}/RAW.db", size_mb=1, cutoff=500)
+            dirs[str(d)] = (w, run_stages(w, cfgs, d, {}, log_walls=False))
+        (wc, rc), (wp, rp) = dirs[str(dev)], dirs["cpu"]
+        names = stage_files(wc)
+        if names != stage_files(wp):
+            raise SystemExit("chip_smoke: small stages: the file lists "
+                             "differ")
+        for f in names:
+            if not filecmp.cmp(f"{wc}/{f}", f"{wp}/{f}", shallow=False):
+                raise SystemExit(f"chip_smoke: small stages: {f} differs "
+                                 f"between the card and the CPU path")
+        if rc["tan_bp"] <= 0 or rc["kept_records"] <= 0:
+            raise SystemExit(f"chip_smoke: small stages: tan bp "
+                             f"{rc['tan_bp']}, kept {rc['kept_records']}")
+        return dict(files=len(names), blocks=rc["db"].nblocks,
+                    tan_bp=rc["tan_bp"], kept=rc["kept_records"],
+                    card_s=sum(rc["walls"].values()),
+                    cpu_s=sum(rp["walls"].values()))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--passes", type=int, default=1,
@@ -1426,8 +1833,17 @@ def main(argv=None) -> int:
     if any(r["launches"] <= 0 for r in rows):
         raise SystemExit("chip_smoke: a kernel was launched on no path")
 
+    # ---- the stages from a DB on disk: masking, patch, scrub ----
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    staged = stages_phase(dev, card)
+    log(f"stages phase: {time.time() - t0:.1f} s")
+    for r in rows:
+        r["stage_launches"] = staged["launches"][r["name"]]
+    staged.pop("launches")
+
     print(json.dumps({"kernels": rows, "wide_retry_routes": routes,
-                      "wide_route": wide, "sweep": swept,
+                      "wide_route": wide, "sweep": swept, "stages": staged,
                       "profiler_lost_launches": LOST_LAUNCHES}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

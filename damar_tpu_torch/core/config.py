@@ -1,6 +1,7 @@
-"""Overlap phase configuration: the fields of damar_tpu.core.config's
+"""Phase configurations: the fields of damar_tpu.core.config's
 OverlapConfig that the port reads, with the same defaults (daligner
--k14 -w6 -h35 -e.70 -l1000 -s100).  The reference's use_pallas switch
+-k14 -w6 -h35 -e.70 -l1000 -s100), and its MaskConfig and ScrubConfig
+as they are.  The reference's use_pallas switch
 and launch widths (seed_batch, seed_batch_dev) have no counterpart: each
 dp_kernel has one implementation here, the CUDA kernels on the card and
 their plain versions on the CPU."""
@@ -41,3 +42,32 @@ class OverlapConfig:
     @property
     def bucket_width(self) -> int:
         return 1 << self.band_shift
+
+
+@dataclass(frozen=True)
+class MaskConfig:
+    """datander/TANmask/REPmask/LArepeat-equivalent parameters."""
+    tan_min_len: int = 500       # min tandem interval length to mask
+    rep_cov: int = 10            # REPmask -c: coverage threshold
+    rep_low: float = 1.5         # LArepeat -l: low multiple of expected cov
+    rep_high: float = 2.0        # LArepeat -h: high multiple
+    dust_window: int = 64        # DBdust window
+    dust_thresh: float = 2.0     # DBdust score threshold
+
+
+@dataclass(frozen=True)
+class ScrubConfig:
+    """LAstitch/LAq/LAfix/LAgap/LAfilter-equivalent parameters."""
+    stitch_fuzz: int = 100       # LAstitch -f: max unaligned gap to stitch
+    q_good: int = 25             # segment diff count considered good
+    q_bad: int = 35              # segment diff count considered bad
+    min_cov_patch: int = 1       # min alternatives to patch a segment
+    gap_min_cov: int = 2         # LAgap: coverage below -> break candidate
+    min_trim_len: int = 1000     # drop reads shorter than this after trim
+    anchor_min: int = 300        # LAfilter chain rule: min bases of an
+                                 # alignment outside repeat intervals
+    filter_min_len: int = 1000   # LAfilter: min overlap length kept
+    filter_max_diff: float = 0.35  # max error rate of kept overlaps
+    filter_fuzz: int = 40        # dovetail end slop
+    filter_best_n: int = 0       # LAfilter best-n-per-end: keep at most
+                                 # n dovetails per read end (0 = off)

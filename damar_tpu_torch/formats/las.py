@@ -13,9 +13,10 @@ segment; segments are delimited by absolute multiples of tspace in A.
 Records are sorted by (aread, bread, COMP bit, abpos, aepos, bbpos).
 
 This is the columnar subset of damar_tpu.formats.las that the overlap
-pipeline and the block sweep emit, read, merge and check; it writes the
-same bytes.  The per-record Overlap objects, reconstruct_alignment and
-show_las are not ported yet (the pile tools that need them are not).
+pipeline, the block sweep, masking and scrub emit, read, merge and check;
+it writes the same bytes.  The per-record Overlap objects,
+reconstruct_alignment and show_las are not ported yet (no ported stage
+needs them).
 """
 from __future__ import annotations
 
@@ -180,6 +181,13 @@ class LasFile:
             raise ValueError(f"mixed tspace values {ts}")
         return LasFile(ts.pop(), columns=LasColumns.concat(
             [p.columns for p in parts]))
+
+
+def n_segments(abpos: int, aepos: int, tspace: int) -> int:
+    """Number of trace-point segments of A-interval [abpos, aepos)."""
+    if aepos <= abpos:
+        return 0
+    return (aepos - 1) // tspace - abpos // tspace + 1
 
 
 def write_las(path: str, las: LasFile, _chunk: int = 1 << 25) -> None:

@@ -1,5 +1,6 @@
-"""Canonical k-mer codes over a block's base array (torch port of
-damar_tpu/ops/kmers.py: kmer_codes_canonical).
+"""K-mer codes over a block's base array (torch port of
+damar_tpu/ops/kmers.py: kmer_codes, the forward codes the datander
+search indexes, and kmer_codes_canonical).
 
 A k-mer starting at position i is valid iff its window lies within one
 read (read_id[i] == read_id[i+k-1]), its start is a real base, and no
@@ -15,6 +16,30 @@ def invalid_code(k: int) -> int:
     """Sentinel code for invalid windows: 4**k, one past the largest
     valid code, so it sorts last."""
     return 1 << (2 * k)
+
+
+def _valid_windows(bases, read_id, k: int, mask):
+    n = bases.shape[0]
+    valid = read_id == torch.roll(read_id, -(k - 1))
+    valid &= torch.arange(n, device=bases.device) <= n - k
+    valid &= bases < 4
+    if mask is not None:
+        valid &= ~mask
+    return valid
+
+
+def kmer_codes(bases: torch.Tensor, read_id: torch.Tensor, k: int,
+               mask: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward (non-canonical) codes per window.  Returns (codes
+    int64[N], valid bool[N]); invalid windows get invalid_code(k)."""
+    b = bases.to(torch.int64) & 3
+    code = torch.zeros(bases.shape[0], dtype=torch.int64,
+                       device=bases.device)
+    for j in range(k):
+        code = ((code << 2) | torch.roll(b, -j)) & 0xFFFFFFFF
+    valid = _valid_windows(bases, read_id, k, mask)
+    return torch.where(valid, code, invalid_code(k)), valid
 
 
 def kmer_codes_canonical(bases: torch.Tensor, read_id: torch.Tensor,
@@ -34,12 +59,7 @@ def kmer_codes_canonical(bases: torch.Tensor, read_id: torch.Tensor,
         code = ((code << 2) | bj) & 0xFFFFFFFF
         rc = rc | ((3 - bj) << (2 * j))
     rc = rc & 0xFFFFFFFF
-    valid = read_id == torch.roll(read_id, -(k - 1))
-    idx = torch.arange(n, device=bases.device)
-    valid &= idx <= n - k
-    valid &= bases < 4
-    if mask is not None:
-        valid &= ~mask
+    valid = _valid_windows(bases, read_id, k, mask)
     strand = valid & (rc < code)
     canon = torch.minimum(code, rc)
     codes = torch.where(valid, canon, torch.full_like(canon,

@@ -16,6 +16,14 @@ torch ops here; seeds and their order equal the reference's.
      predecessor band, and the first hit of every band reaching hit_min
      kept as its anchor seed (diagonal_filter_packed).
 
+The datander search (find_tandem_seeds) runs the forward, unpacked
+form of the same stages: a forward k-mer index with block positions as
+payload (build_index), the self merge (match_count), the B-tuple-major
+fill (match_fill) and the double-bucketed banding restricted to one
+read and a diagonal window (diagonal_filter).  Its buffers are sized
+from the counts, not capped as the reference's are (fault 3g in
+ROADMAP.md; explicit caps reproduce the reference's truncation).
+
 Not ported (the wrapper raises NotImplementedError): the sliced path
 for hit buffers above _SLICE_CAP, the legacy block-absolute payload for
 blocks whose payload exceeds 32 bits, and -b (cfg.bias).
@@ -28,14 +36,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from damar_tpu_torch.ops.kmers import invalid_code, kmer_codes_canonical
+from damar_tpu_torch.ops.kmers import (invalid_code, kmer_codes,
+                                       kmer_codes_canonical)
 from damar_tpu_torch.ops.sort import (M32, compact_flagged, pack_fields,
                                       radix_sort_bits, radix_sort_packed,
                                       seg_last_from_first,
-                                      seg_starts_from_first, unpack_field)
+                                      seg_starts_from_first,
+                                      segment_sum_to_elements, unpack_field)
 
 _SLICE_CAP = 1 << 27     # hit buffers above this need the sliced path
 DEAD_MP = 0xFFFFFFFF     # payload of a dead hit row
+# damar_tpu's find_tandem_seeds buffer caps (ops/seeding.py:422); passed
+# explicitly they reproduce its truncation
+REF_TANDEM_HIT_CAP = 1 << 20
+REF_TANDEM_SEED_CAP = 1 << 15
 
 
 def quantize_bits(n: int, step: int = 4) -> int:
@@ -252,16 +266,7 @@ def diagonal_filter_packed(ap_mp, bp_mp, nhits: int,
                        | (B_hi[1:] != B_hi[:-1])])
     prev_arp = torch.cat([arp_s[:1], arp_s[:-1]])
     cov = torch.where(first, kmer, torch.clamp(arp_s - prev_arp, max=kmer))
-    cov = torch.clamp(cov, min=0)
-    # per-element segment sums from two scans of the inclusive cumsum
-    cum = torch.cumsum(cov, 0)
-    cum_prev = torch.cat([cum.new_zeros(1), cum[:-1]])
-    base = torch.cummax(torch.where(first, cum_prev, 0), 0).values
-    is_last = torch.cat([first[1:], one])
-    big = torch.iinfo(torch.int64).max
-    cum_last = torch.cummin(torch.where(is_last, cum, big).flip(0),
-                            0).values.flip(0)
-    seg_sum = cum_last - base
+    seg_sum = segment_sum_to_elements(torch.clamp(cov, min=0), first)
     # adjacent-band window = (previous band, this band): at a segment's
     # first element the previous segment's sum and band id sit one
     # element back
@@ -403,3 +408,152 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
         "raw_cap": cap,
         "compact_cap": cap,
     }
+
+
+# ---------------------------------------------------------------------------
+# The datander search: forward codes, block positions as payload.
+# ---------------------------------------------------------------------------
+
+def build_index(bases, read_id, k: int, mask=None):
+    """Sorted forward k-mer index of a block: (codes_sorted, pos_sorted),
+    the stable sort keeping each code run in block-position order."""
+    codes, _ = kmer_codes(bases, read_id, k, mask)
+    pos = torch.arange(bases.shape[0], device=bases.device)
+    codes_s, (pos_s,) = radix_sort_bits(codes, (pos,))
+    return codes_s, pos_s
+
+
+def match_fill(a_pos, b_pos, lo, c, cum, hit_cap: int):
+    """Materialize (apos, bpos) hit pairs from a match_count result into
+    a buffer of hit_cap, B-tuple-major: each emitting tuple marks its run
+    start, a running max gives every hit slot its tuple.  Returns (apos,
+    bpos, nhits, total): nhits = min(total, hit_cap) live rows, the
+    others -1; total > hit_cap means the buffer truncated the hits."""
+    dev = a_pos.device
+    total = int(cum[-1])
+    starts = cum - c
+    put = torch.nonzero((c > 0) & (starts < hit_cap)).flatten()
+    mark = torch.zeros(hit_cap, dtype=torch.int64, device=dev)
+    mark[starts[put]] = put            # run starts of emitting tuples
+    bidx = torch.cummax(mark, 0).values
+    slot = torch.arange(hit_cap, device=dev)
+    off = slot - starts[bidx]
+    apos = a_pos[(lo[bidx] + off).clamp(0, a_pos.shape[0] - 1)]
+    bpos = b_pos[bidx]
+    nhits = min(total, hit_cap)
+    live = slot < nhits
+    return (torch.where(live, apos, -1), torch.where(live, bpos, -1),
+            nhits, total)
+
+
+def _pos_bits(*caps: int) -> int:
+    return max(int(c - 1).bit_length() for c in caps)
+
+
+def diagonal_filter(apos, bpos, nhits: int, read_id, pos_bits: int,
+                    read_bits: int, band_shift: int, hit_min: int,
+                    kmer: int, seed_cap: int, min_diag: int,
+                    max_diag: int):
+    """Band a block's self hits (block positions) by (read, diagonal >>
+    band_shift) and keep the first hit of every band whose novel k-mer
+    coverage reaches hit_min.  Only hits of a read against itself with
+    min_diag <= apos - bpos <= max_diag are kept (the datander band).
+    Each hit is counted in its band and the next one up (double
+    bucketing), so a seed straddling a band edge is whole in one of
+    them.  Returns (aread, bread, apos, bpos, cov) tensors of seed_cap
+    (dead rows -1, cov 0) and host ints (nseeds, total_seeds)."""
+    n = apos.shape[0]
+    dev = apos.device
+    ar = read_id.to(torch.int64)[apos.clamp(min=0)]
+    diag = apos - bpos
+    live = ((torch.arange(n, device=dev) < nhits)
+            & (ar == read_id.to(torch.int64)[bpos.clamp(min=0)])
+            & (diag >= min_diag) & (diag <= max_diag))
+    dead_read = (1 << read_bits) - 1
+    ar_k = torch.where(live, ar, dead_read)
+    bucket = (diag + read_id.shape[0]) >> band_shift
+    bucket_bits = pos_bits + 2 - band_shift
+    # double bucketing: every hit in its band and in the next one up
+    widths = (pos_bits, bucket_bits, read_bits)
+    words = pack_fields((torch.cat([apos, apos]).clamp(min=0),
+                         torch.cat([bucket, bucket + 1]),
+                         torch.cat([ar_k, ar_k])), widths)
+    words_s, (bpos_s,) = radix_sort_packed(words, (torch.cat([bpos, bpos]),),
+                                           sum(widths))
+    apos_s = unpack_field(words_s, 0, pos_bits)
+    # band identity = every key bit above the apos field
+    bucket_s = unpack_field(words_s, pos_bits, bucket_bits)
+    ar_s = unpack_field(words_s, pos_bits + bucket_bits, read_bits)
+    brk = (ar_s[1:] != ar_s[:-1]) | (bucket_s[1:] != bucket_s[:-1])
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), brk])
+    prev_apos = torch.cat([apos_s[:1], apos_s[:-1]])
+    cov = torch.where(first, kmer, torch.clamp(apos_s - prev_apos,
+                                               max=kmer)).clamp(min=0)
+    seg_sum = segment_sum_to_elements(cov, first)
+    rep = first & (seg_sum >= hit_min) & (ar_s != dead_read)
+    comp, nseeds, total_seeds = compact_flagged(
+        rep, tuple(words_s) + (bpos_s, seg_sum), out_cap=seed_cap, fill=0)
+    w_out, bp_out, cov_out = comp[:-2], comp[-2], comp[-1]
+    keep = torch.arange(seed_cap, device=dev) < nseeds
+
+    def mark(x):
+        return torch.where(keep, x, -1)
+
+    read = mark(unpack_field(w_out, pos_bits + bucket_bits, read_bits))
+    return (read, read.clone(), mark(unpack_field(w_out, 0, pos_bits)),
+            mark(bp_out),
+            torch.where(keep, cov_out, 0), nseeds, total_seeds)
+
+
+def find_tandem_seeds(blk, cfg, min_period: int = 8,
+                      max_period: int = 2000, hit_cap: int | None = None,
+                      seed_cap: int | None = None, *, device):
+    """Self-comparison seeds on a near-diagonal band (the datander
+    search): a read matching itself at offset p in [min_period,
+    max_period] (apos - bpos, block positions) has tandem period p.
+
+    The self merge pairs every k-mer with each k-mer of its code run,
+    itself included, so a block of N bases gives well over N hits.  The
+    buffers are sized from the counts: the hit buffer from the count
+    phase's total, the seed buffer (REF_TANDEM_SEED_CAP at first) grown
+    to hold total_seeds by one more banding.  An explicit hit_cap or
+    seed_cap is a hard cap instead, as in damar_tpu, which truncates the
+    B-tuple-major fill there (its defaults: REF_TANDEM_HIT_CAP,
+    REF_TANDEM_SEED_CAP).  A hit buffer above _SLICE_CAP raises
+    NotImplementedError (the sliced path is not ported).  device (keyword-only, no default) is where
+    the block goes.  Returns tensors of the seed buffer (aread, bread,
+    apos, bpos, cov) and host ints (nseeds, total_seeds, nhits,
+    total_hits, hit_buffer, seed_buffer)."""
+    bases = torch.as_tensor(blk.bases, device=device)
+    rid = torch.as_tensor(blk.read_id, device=device)
+    c, p = build_index(bases, rid, cfg.kmer)
+    t = cfg.max_kmer_count or 128
+    lo, cnt, cum, total = match_count(c, c, k=cfg.kmer, max_count=t)
+    total = int(total)
+    cap = max(total if hit_cap is None else min(total, hit_cap), 1)
+    if cap > _SLICE_CAP:
+        raise NotImplementedError(
+            f"hit buffer {cap} > {_SLICE_CAP}: the sliced seeding path "
+            "is not ported")
+    apos, bpos, nhits, total_hits = match_fill(p, p, lo, cnt, cum,
+                                               hit_cap=cap)
+    del c, lo, cnt, cum
+
+    def band(cap):
+        return diagonal_filter(
+            apos, bpos, nhits, rid, pos_bits=_pos_bits(blk.cap),
+            read_bits=quantize_bits(blk.nreads + 1),
+            band_shift=cfg.band_shift, hit_min=cfg.hit_min, kmer=cfg.kmer,
+            seed_cap=cap, min_diag=min_period, max_diag=max_period)
+
+    sc = REF_TANDEM_SEED_CAP if seed_cap is None else seed_cap
+    out = band(sc)
+    if seed_cap is None and out[-1] > sc:
+        while sc < out[-1]:
+            sc *= 2
+        out = band(sc)
+    ar, br, sap, sbp, cov, nseeds, total_seeds = out
+    return {"aread": ar, "bread": br, "apos": sap, "bpos": sbp, "cov": cov,
+            "nseeds": nseeds, "total_seeds": total_seeds, "nhits": nhits,
+            "total_hits": total_hits, "hit_buffer": int(apos.shape[0]),
+            "seed_buffer": sc}

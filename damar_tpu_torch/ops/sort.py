@@ -1,6 +1,6 @@
 """Stable sorts and sorted-stream helpers (torch port of the parts of
-damar_tpu/ops/sort.py that the seeding and the overlap pipeline
-call).
+damar_tpu/ops/sort.py that the seeding, the overlap pipeline and the
+pile tools call).
 
 Sort keys are int64 tensors holding unsigned values below 2**32 (one
 packed word) or below 2**63.  Multi-word keys sort least-significant
@@ -9,9 +9,17 @@ and returns the reference's order exactly.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
+
+
+def host_lexsort(keys) -> np.ndarray:
+    """np.lexsort on the host (LAST key primary, stable): the order of
+    damar_tpu's host_lexsort, which is np.lexsort or a native radix
+    giving the same permutation."""
+    return np.lexsort(tuple(keys))
 
 
 def pack_fields(fields, widths):
@@ -101,3 +109,20 @@ def seg_last_from_first(first: torch.Tensor) -> torch.Tensor:
     nxt = torch.where(first, idx, n)
     shifted = torch.cat([nxt[1:], nxt.new_full((1,), n)])
     return torch.cummin(shifted.flip(0), 0).values.flip(0) - 1
+
+
+def segment_sum_to_elements(values: torch.Tensor, first: torch.Tensor
+                            ) -> torch.Tensor:
+    """Per-element total of its segment in a sorted stream with run-break
+    flags `first` (first[0] True) over nonnegative values: the inclusive
+    cumsum at the segment's last element less the one before its first,
+    each spread over the segment by a running max (min) of the
+    nondecreasing cumsum."""
+    cum = torch.cumsum(values, 0)
+    cum_prev = torch.cat([cum.new_zeros(1), cum[:-1]])
+    base = torch.cummax(torch.where(first, cum_prev, 0), 0).values
+    is_last = torch.cat([first[1:], first.new_ones(1)])
+    big = torch.iinfo(cum.dtype).max
+    cum_last = torch.cummin(torch.where(is_last, cum, big).flip(0),
+                            0).values.flip(0)
+    return cum_last - base

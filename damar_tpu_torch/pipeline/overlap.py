@@ -18,6 +18,10 @@ trace kernel first, then the wide-band kernel for the extents it could
 not force through (no host C tiers: the port has none).  Results are
 byte-identical to damar_tpu on that route.
 
+The masking and scrub stages reach the same kernels through
+extend_seeds (K1 on the datander search's seeds) and retrace_rows (K3's
+wide trace on stitched records).
+
 Device arrays live in each block's `cache` (uploads, packed words, the
 A-side index, the trace pool) until release_device_buffers drops them
 or the block object goes.  A sweep over many pairs runs
@@ -37,9 +41,12 @@ import torch
 
 from damar_tpu_torch.core.blocks import ReadBlock, revcomp_block
 from damar_tpu_torch.core.config import OverlapConfig
-from damar_tpu_torch.formats.las import (TRACE_XOVR, LasColumns, LasFile,
+from damar_tpu_torch.formats.las import (H_ABPOS, H_AEPOS, H_AREAD,
+                                         H_BBPOS, H_BEPOS, H_BREAD, H_DIFFS,
+                                         H_FLAGS, H_TLEN, TRACE_XOVR,
+                                         LasColumns, LasFile,
                                          encode_trace_columns)
-from damar_tpu_torch.formats.oflags import OVL_COMP
+from damar_tpu_torch.formats.oflags import OVL_COMP, OVL_DISCARD
 from damar_tpu_torch.ops.seeding import (canonical_index_dev,
                                          find_seeds_canonical_dev,
                                          quantize_bits)
@@ -334,6 +341,57 @@ def _extend_all_dev(blk_a: ReadBlock, blk_b: ReadBlock,
         ext["comp"] = bool(c)
         stats["extents"] += ext["n"]
         out.append(ext)
+    return out
+
+
+def extend_seeds(blk_a: ReadBlock, blk_b: ReadBlock, seeds: dict,
+                 cfg: OverlapConfig, *, device) -> dict:
+    """Bidirectional extension of seeds with block-absolute apos/bpos
+    (one orientation: blk_b is already the seeds' orientation of the B
+    block) -> host columnar extents in read-local
+    coordinates, rows with an empty span dropped.  The datander search's
+    extension (damar_tpu extend_seeds): the nseeds seeds become 2 *
+    nseeds units [fwd | rev], and K1 runs one launch per phase over all
+    of them (the two-phase form of _extend_all_dev).  device
+    (keyword-only, no default): where the blocks' words and the units
+    live."""
+    n = int(seeds["nseeds"])
+    if n == 0:
+        return empty_extents()
+    device = torch.device(device)
+    dev_t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    sa = _starts_dev(blk_a, device)
+    sb = _starts_dev(blk_b, device)
+    ar = dev_t(seeds["aread"][:n]).to(torch.int64)
+    br = dev_t(seeds["bread"][:n]).to(torch.int64)
+    ap = dev_t(seeds["apos"][:n]).to(torch.int64)
+    bp = dev_t(seeds["bpos"][:n]).to(torch.int64)
+    a0, a1, b0, b1 = sa[ar], sa[ar + 1], sb[br], sb[br + 1]
+    alim = torch.cat([a1 - ap, ap - a0])
+    blim = torch.cat([b1 - bp, bp - b0])
+    rev = torch.cat([torch.zeros(n, dtype=torch.bool, device=device),
+                     torch.ones(n, dtype=torch.bool, device=device)])
+    run = partial(extend_wave_bp, _packed_words_of(blk_a, device),
+                  _packed_words_of(blk_b, device), torch.cat([ap, ap]),
+                  torch.cat([bp, bp]), dirs=rev, R=cfg.bp_chunk,
+                  max_rows=cfg.max_read_len, diff_cost=cfg.diff_cost,
+                  xdrop=cfg.xdrop, packed=True)
+    P1 = cfg.ext_phase1_rows
+    if 0 < P1 < cfg.max_read_len:
+        r1 = run(alim, blim, max_rows=P1, with_active=True)
+        # phase 2: the still-active units again from row 0, full depth
+        act = r1[4]
+        r2 = run(torch.where(act, alim, 0), blim)
+        va, vb, vd = [torch.where(act, x2, x1).to(torch.int64)
+                      for x1, x2 in zip(r1[:3], r2[:3])]
+    else:
+        va, vb, vd = [x.to(torch.int64) for x in run(alim, blim)[:3]]
+    ap_l, bp_l = ap - a0, bp - b0
+    d = torch.stack([ar, br, ap_l - va[n:], ap_l + va[:n], bp_l - vb[n:],
+                     bp_l + vb[:n], vd[:n] + vd[n:]])
+    d = d[:, (d[3] > d[2]) & (d[5] > d[4])].cpu().numpy()
+    out = {k: d[i].astype(np.int32) for i, k in enumerate(EXT_KEYS)}
+    out["n"] = d.shape[1]
     return out
 
 
@@ -776,6 +834,103 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
     las_b.sort()
     stats["t_trace_final"] = round(time.time() - t_fin, 3)
     return las_a, las_b
+
+
+def retrace_rows(las: LasFile, rows, blk_a: ReadBlock, blk_b: ReadBlock,
+                 cfg: OverlapConfig, *, device) -> int:
+    """Recompute the trace and diffs of the given row indices of a
+    columnar las in place, splicing the payload (damar_tpu
+    retrace_rows; after LAstitch, whose chains with overlapping
+    fragments need a real trace across the junction).  blk_a/blk_b hold
+    the rows' A and B reads (absolute ids through blk.ids).  Every row
+    runs on the wide band (K3's wide_trace_kernel) over a pool [A fwd | B
+    fwd | B rc] of the two blocks: one launch per segment-count bucket,
+    both orientations together (rows are independent, so the plan does
+    not change a row's result).  Rows whose retrace fails the trace
+    checks, and rows whose reads the blocks lack, get OVL_DISCARD and an
+    empty trace (tlen 0).  Returns the number so dropped.  device
+    (keyword-only, no default): where the pool and the launches go."""
+    cols = las.columns
+    rows = np.asarray(rows, dtype=np.int64)
+    if not len(rows):
+        return 0
+    device = torch.device(device)
+    h = cols.headers
+    a_local = {int(i): j for j, i in enumerate(blk_a.ids)}
+    b_local = {int(i): j for j, i in enumerate(blk_b.ids)}
+    known = np.array([int(a) in a_local and int(b) in b_local
+                      for a, b in zip(h[rows, H_AREAD], h[rows, H_BREAD])],
+                     bool)
+    good_rows = rows[known]
+    failed = [int(r) for r in rows[~known]]
+    new_rows: dict[int, np.ndarray] = {}
+    if len(good_rows):
+        pool, OA, OBF, OBC, _ = _trace_pool(
+            blk_a, blk_b, _rc_cached(blk_b), None, emit_mirrors=False,
+            device=device)
+        hr = h[good_rows]
+        ar = np.array([a_local[int(r)] for r in hr[:, H_AREAD]], np.int64)
+        br = np.array([b_local[int(r)] for r in hr[:, H_BREAD]], np.int64)
+        comp = (hr[:, H_FLAGS] & OVL_COMP) != 0
+        units = dict(
+            abp=hr[:, H_ABPOS].astype(np.int32),
+            aep=hr[:, H_AEPOS].astype(np.int32),
+            bbp=hr[:, H_BBPOS].astype(np.int32),
+            bep=hr[:, H_BEPOS].astype(np.int32),
+            ast=OA + blk_a.starts.astype(np.int64)[ar],
+            bst=np.where(comp, OBC, OBF) + blk_b.starts.astype(np.int64)[br],
+            ar=ar, row=good_rows)
+        plan = _trace_plan(units["aep"] - units["abp"],
+                           _n_segments_vec(units["abp"], units["aep"],
+                                           cfg.tspace), _cap_segs(cfg))
+        wide = partial(trace_wave, W=cfg.band_width)
+        chunks = [{k: v[sel] for k, v in units.items()} for sel in plan]
+        res_all = _trace_harvest_all(
+            [_trace_launch(pool, ch, cfg, kernel=wide) for ch in chunks],
+            cfg)
+        for ch, (offs, okv, packed, dsum) in zip(chunks, res_all):
+            for i, r in enumerate(ch["row"]):
+                if okv[i]:
+                    tr = packed[offs[i]:offs[i + 1]]
+                    h[r, H_TLEN] = 2 * len(tr)
+                    h[r, H_DIFFS] = int(dsum[i])
+                    new_rows[int(r)] = tr
+                else:
+                    failed.append(int(r))
+    for r in failed:
+        h[r, H_FLAGS] = np.int32(np.uint32(h[r, H_FLAGS]) | OVL_DISCARD)
+        h[r, H_TLEN] = 0
+        new_rows[r] = np.zeros((0, 2), np.int32)
+    # splice the payload: the rows' new lengths, untouched rows' bytes
+    # copied in bulk, then the recomputed traces written
+    small = cfg.tspace <= TRACE_XOVR
+    width = 2 if small else 4
+    lens = np.diff(cols.offsets)
+    new_lens = lens.copy()
+    for r, tr in new_rows.items():
+        new_lens[r] = tr.shape[0] * width
+    offs2 = np.zeros(cols.n + 1, np.int64)
+    np.cumsum(new_lens, out=offs2[1:])
+    buf = np.zeros(int(offs2[-1]), np.uint8)
+    untouched = np.ones(cols.n, bool)
+    untouched[list(new_rows)] = False
+    if cols.offsets[-1]:
+        src = np.arange(int(cols.offsets[-1]), dtype=np.int64)[
+            np.repeat(untouched, lens)]
+        if len(src):
+            u = np.nonzero(untouched)[0]
+            ul = lens[u]
+            dst = (np.arange(int(ul.sum()), dtype=np.int64)
+                   - np.repeat(np.cumsum(ul) - ul, ul)
+                   + np.repeat(offs2[:-1][u], ul))
+            buf[dst] = cols.trace[src]
+    for r, tr in new_rows.items():
+        if tr.shape[0]:
+            buf[offs2[r]:offs2[r + 1]] = encode_trace_columns(
+                tr, np.array([0, tr.shape[0]]), small)[0]
+    cols.trace = buf
+    cols.offsets = offs2
+    return len(failed)
 
 
 def _sync(device) -> None:

@@ -11,8 +11,9 @@ files), the port of damar_tpu.pipeline.planner:
     pairs: overlap.overlap_pairs_pipelined), writing per-pair sorted
     .las files and done markers, then merging per A block.
 
-plan_masking and render_script are not ported yet (they wait for the
-masking and command-line slices).
+  * plan_masking: the dust, per-block tandem and coarse-to-fine repeat
+    mask job list (the HPC.TANmask / HPC.REPmask shape), as data; its
+    executor is the command line, not ported yet, like render_script.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import numpy as np
 @dataclass
 class Job:
     name: str
-    kind: str              # "overlap" | "merge" | "check"
+    kind: str              # "overlap" | "merge" | "check" | "mask"
     args: dict
     deps: list[str] = field(default_factory=list)
 
@@ -64,6 +65,70 @@ def plan_block_pairs(db_root: str, nblocks: int,
                       db=db_root),
             deps=[f"merge.{i}"],
         ))
+    return jobs
+
+
+def plan_masking(db_root: str, nblocks: int,
+                 rep_rounds: tuple = None) -> list[Job]:
+    """The HPC.TANmask / HPC.REPmask-equivalent job list: dust +
+    per-block tandem masking (independent block jobs + a track merge),
+    then COARSE-TO-FINE repeat-mask rounds (upstream HPC.REPmask plans
+    3 rounds of group-limited daligner sweeps with falling coverage
+    thresholds — each round's track soft-masks the next round's
+    seeding, so high-copy repeats are suppressed before they flood the
+    finer rounds' hit buffers).
+
+    rep_rounds: tuple of (group_size, cov_multiple) per round; group
+    size g means each block is overlapped against g blocks starting at
+    itself (g=0 -> all blocks).  Defaults to the reference's 3-round
+    shape scaled to the block count."""
+    if rep_rounds is None:
+        if nblocks <= 1:
+            rep_rounds = ((0, 2.0),)
+        elif nblocks <= 4:
+            rep_rounds = ((1, 4.0), (0, 2.0))
+        else:
+            rep_rounds = ((1, 4.0), (min(4, nblocks), 3.0), (0, 2.0))
+    jobs: list[Job] = []
+    jobs.append(Job(name="dust", kind="mask",
+                    args=dict(cmd="dbdust", db=db_root)))
+    for i in range(1, nblocks + 1):
+        jobs.append(Job(name=f"tan.{i}", kind="mask",
+                        args=dict(cmd="datander", db=db_root, block=i)))
+    jobs.append(Job(name="tan.merge", kind="mask",
+                    args=dict(cmd="tkmerge", db=db_root, track="tan"),
+                    deps=[f"tan.{i}" for i in range(1, nblocks + 1)]))
+    masks = ["dust", "tan"]
+    for r, (g, cmult) in enumerate(rep_rounds, 1):
+        track = f"rep{r}" if len(rep_rounds) > 1 else "rep"
+        grp = nblocks if g == 0 else min(g, nblocks)
+        for i in range(1, nblocks + 1):
+            pair_deps = []
+            for dj in range(grp):
+                j = (i - 1 + dj) % nblocks + 1
+                a, b = min(i, j), max(i, j)
+                name = f"rep{r}.ovl.{a}.{b}"
+                if not any(jb.name == name for jb in jobs):
+                    jobs.append(Job(
+                        name=name, kind="overlap",
+                        args=dict(db=db_root, a_block=a, b_block=b,
+                                  masks=list(masks),
+                                  out_a=f"{db_root}.R{r}.{a}.{b}.las",
+                                  out_b=f"{db_root}.R{r}.{b}.{a}.las"),
+                        deps=(["tan.merge"] if r == 1
+                              else [f"rep{r-1}.merge"])))
+                pair_deps.append(name)
+            jobs.append(Job(
+                name=f"rep{r}.{i}", kind="mask",
+                args=dict(cmd="repmask", db=db_root, block=i,
+                          cov_mult=cmult, track=track,
+                          las=f"{db_root}.R{r}.{i}.las"),
+                deps=pair_deps))
+        jobs.append(Job(
+            name=f"rep{r}.merge", kind="mask",
+            args=dict(cmd="tkmerge", db=db_root, track=track),
+            deps=[f"rep{r}.{i}" for i in range(1, nblocks + 1)]))
+        masks = masks + [track]
     return jobs
 
 

@@ -263,3 +263,58 @@ def test_pipelined_on_card_matches_sequential(dev):
             for k in ("headers", "trace", "offsets"):
                 assert np.array_equal(getattr(x.columns, k),
                                       getattr(y.columns, k))
+
+
+@pytest.mark.cuda
+def test_tandem_track_on_card_matches_cpu(dev):
+    """The datander search and its K1 extension on the card give the CPU
+    path's seeds, extents and track."""
+    from damar_tpu_torch.core.blocks import block_from_reads
+    from damar_tpu_torch.core.config import MaskConfig, OverlapConfig
+    from damar_tpu_torch.ops.seeding import find_tandem_seeds
+    from damar_tpu_torch.pipeline.masking import tandem_track
+    from damar_tpu_torch.utils.sim import make_genome, sample_reads
+    g = make_genome(60_000, seed=5, tandem=6)
+    blk = block_from_reads(sample_reads(g, coverage=6.0, mean_len=4000,
+                                        err=0.12, seed=6).reads)
+    cfg = OverlapConfig()
+    s_gpu = find_tandem_seeds(blk, cfg, device=dev)
+    s_cpu = find_tandem_seeds(blk, cfg, device="cpu")
+    for k in ("aread", "bread", "apos", "bpos", "cov"):
+        assert torch.equal(s_gpu[k].cpu(), s_cpu[k])
+    before = wave_bp.extend_wave_bp.launches
+    t_gpu = tandem_track(blk, cfg, MaskConfig(), device=dev)
+    assert wave_bp.extend_wave_bp.launches == before + 2   # two phases
+    t_cpu = tandem_track(blk, cfg, MaskConfig(), device="cpu")
+    assert t_gpu.masked_bp() == t_cpu.masked_bp() > 0
+    for a, b in zip(t_gpu.data, t_cpu.data):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_retrace_rows_on_card_matches_cpu(dev):
+    """retrace_rows on the card (K3's wide_trace_kernel) writes the CPU
+    path's headers and payload."""
+    from damar_tpu_torch.core.blocks import block_from_reads
+    from damar_tpu_torch.core.config import OverlapConfig
+    from damar_tpu_torch.pipeline import overlap as ov
+    from damar_tpu_torch.utils.sim import make_genome, sample_reads
+    reads = sample_reads(make_genome(30_000, seed=3), coverage=8.0,
+                         mean_len=3000, err=0.14, seed=4).reads
+    blk = block_from_reads(reads)
+    cfg = OverlapConfig(min_len=500)
+    la, lb, _ = ov.overlap_block_pair(blk, blk, cfg, True, device=dev)
+    out = []
+    for d in (dev, "cpu"):
+        las = type(la)(la.tspace, columns=la.columns.permute(
+            np.arange(la.novl)))
+        rows = np.arange(0, las.novl, 3)
+        before = wave_wide.trace_wave.launches
+        dropped = ov.retrace_rows(las, rows, block_from_reads(reads),
+                                  block_from_reads(reads), cfg, device=d)
+        if d != "cpu":
+            assert wave_wide.trace_wave.launches > before
+        out.append((dropped, las.columns))
+    assert out[0][0] == out[1][0]
+    for k in ("headers", "trace", "offsets"):
+        assert np.array_equal(getattr(out[0][1], k), getattr(out[1][1], k))

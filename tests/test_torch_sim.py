@@ -125,9 +125,10 @@ PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
     "core.blocks", "core.config", "formats.dazzdb", "formats.fasta",
     "formats.las", "formats.oflags", "formats.tracks", "ops._cuda",
     "ops.kmers", "ops.seeding", "ops.sort", "ops.wave_bp", "ops.wave_wide",
-    "ops.words", "parallel.distributed", "pipeline.overlap",
-    "pipeline.planner", "tools.compare_wave_bp",
-    "tools.profile_window", "utils.sim")]
+    "ops.words", "parallel.distributed", "pipeline.masking",
+    "pipeline.overlap", "pipeline.planner", "pipeline.run",
+    "pipeline.scrub", "tools.compare_wave_bp", "tools.profile_window",
+    "utils.dust", "utils.sim")]
 
 
 def test_port_imports_no_jax():
