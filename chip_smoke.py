@@ -16,7 +16,11 @@ Phases (any failure exits non-zero before the last line is printed):
      past both pool edges, K2 starts off word boundaries and a bucket at
      its segment cap, the wide trace (K3) on extents of 1 to ~20,000
      rows with drifting commits, the d >= INF_I commit, alim = 0 rows
-     and an overflowing max_segs, and K3's chunk form in both modes;
+     and an overflowing max_segs, K3's chunk form in both modes, and the
+     pile aligner (K4) on ragged batches of ~1,000 pairs (templates of
+     0-1,300 codes, bands 64, 96 and 700, covers with margins, shorter
+     ones with n - m negative and odd, unrelated and empty ones, both
+     modes) and on each of its cells-a-lane widths;
   4. run the main path, overlap_block_pair on the large-50Mbp unit (2.5
      Mbp genome, 20x, mean 6 kb, 14% error, seeds 2024/2025, one block
      self-compared): a cold pass, which also builds what the block
@@ -102,8 +106,31 @@ Phases (any failure exits non-zero before the last line is printed):
      buffer caps and prints what they drop (fault 3g); and runs the
      stages on a small DB of short reads on the card and on the CPU
      path: every .las, track file and FIX.fasta byte-equal;
+ 10. the assembly (run.py's phase 7, and run_pipeline whole):
+     a. run_pipeline(polish=False) on phase 9's workdir, which holds
+        run.py's own files, so it resumes at phase 7: the string graph
+        (vertices, edges, the edges whose mirror record was discarded,
+        fault 3i, and those left without a twin), the tour, contigs and
+        N50, the phase's wall; a contig, and contigs summing to >= 85%
+        of the genome;
+     b. run_pipeline(polish=True) from FASTA: a 300 kbp genome at 20x
+        (mean read 6 kb, 14% error, repeats, two tandem arrays, 6%
+        chimeric reads), split into 2 blocks, every other setting the
+        default: each phase's wall, the assemble wall split into
+        correct_reads, the polish rounds and the finishing rounds (host
+        timers around the port's functions), K4's launches, device time
+        (CUDA events around each launch) and bound; its first launch
+        (capped at CAP pairs) held against band_align_plain and timed
+        under torch.profiler; contigs summing
+        to >= 85% of the genome and the longest one's k-mer hit rate
+        > 0.45;
+     c. run_pipeline(polish=True) on the 12 kbp genome of the CPU tests,
+        on the card and on the CPU path: CONTIGS.fasta, every .las, track
+        and FIX.fasta byte-equal, report.json equal but for its walls;
 then print one JSON line of per-kernel results (`stage_launches`: each
-kernel's launches in phase 9) and, last, the device line.
+kernel's launches in phase 9, `assembly_launches` in phase 10b; K4's
+row holds phase 10b's launches and device time) and, last, the device
+line.
 """
 import argparse
 import filecmp
@@ -125,15 +152,15 @@ from damar_tpu_torch.core.config import OverlapConfig
 from damar_tpu_torch.formats import dazzdb
 from damar_tpu_torch.formats import las as lasmod
 from damar_tpu_torch.formats.las import check_las
-from damar_tpu_torch.ops import _cuda, wave_bp, wave_wide
+from damar_tpu_torch.ops import _cuda, band_align, wave_bp, wave_wide
 from damar_tpu_torch.ops.words import pack_bases
 from damar_tpu_torch.parallel.distributed import block_pair_matrix
 from damar_tpu_torch.pipeline import overlap as ov
 from damar_tpu_torch.pipeline.planner import run_overlap_plan
-from damar_tpu_torch.utils.sim import (band_batch, edge_units,
-                                       make_genome, sample_reads,
-                                       unit_batch, wide_trace_batch,
-                                       write_sim_fasta)
+from damar_tpu_torch.utils.sim import (align_pairs_batch, band_batch,
+                                       edge_units, make_genome,
+                                       sample_reads, unit_batch,
+                                       wide_trace_batch, write_sim_fasta)
 
 GENOME, COVERAGE, MEAN_LEN, ERR, SEED = 2_500_000, 20.0, 6_000, 0.14, 2024
 HIT_CAP, SEED_CAP = 1 << 27, 1 << 21
@@ -149,6 +176,12 @@ GENOME_SWEEP, SWEEP_BLOCKS = 10_000_000, 4
 STAGE_REPEATS, STAGE_TANDEMS, STAGE_BLOCKS = 20, 20, 2
 STAGE_HELD = {"tan": ("bp_extend_kernel", 1),
               "scrub_retrace": ("wide_trace_kernel", 2)}
+# the whole assembly's unit (phase 10b): a 300 kbp genome at the main
+# unit's coverage, read length and error, with repeats, two tandem arrays
+# and chimeric reads planted as tests/test_hard_assembly.py plants them,
+# split into 2 blocks; the genome is cut from the 2 Mbp of the reference's
+# polish measurement by this script's time limit
+ASM_GENOME, ASM_SEED, ASM_REPEATS, ASM_TANDEMS = 300_000, 4040, 5, 2
 
 # Bounds: the least time the card could take for a launch's work, the
 # larger of its int32 operations over the INT32 rate and its bytes (each
@@ -196,6 +229,17 @@ MAIN_PATH = ("bp_extend_kernel", "bp_trace_kernel", "wide_trace_kernel")
 PAIR_HELD = {"bp_extend_kernel": 3, "bp_trace_kernel": 2,
              "wide_trace_kernel": 2}
 WIDE_PATH = ("dp_rows_kernel", "wide_trace_kernel")
+# the TPU kernels' ports (K1-K3); K4, the pile aligner, is the port of
+# damar_tpu's host C band_align and runs on the assembly's path (phase 10)
+TPU_KERNELS = ("bp_extend_kernel", "bp_trace_kernel", "wide_trace_kernel",
+               "dp_rows_kernel")
+K4 = "band_align_kernel"
+# K4's int32 operations per DP cell, estimated from csrc/band_align.cu:
+# the char load and compare 4, the three candidates and their minimum 6,
+# the prefix minimum and its clamps 5, the three flag tests and the flag
+# byte 10, loop and address work ~5; the SASS count (per cell of the row
+# loop) is taken where it is smaller
+K4_OPS_PER_CELL = 30
 
 # kernel name -> (wrapper whose `launches` counts it, module, launch fn,
 # plain torch version with the same contract, source, replaced TPU kernel)
@@ -217,6 +261,11 @@ KERNELS = {
                        wave_wide.dp_rows_plain,
                        "damar_tpu_torch/csrc/dp_rows.cu",
                        "damar_tpu/ops/wave_pallas.py:43"),
+    K4: (band_align.band_align, band_align, "band_align_kernel",
+         band_align.band_align_plain, "damar_tpu_torch/csrc/band_align.cu",
+         "damar_tpu/native/damar_native.c:218 band_align, :322 "
+         "band_align_batch (port of damar_tpu/native band_align, not a TPU "
+         "kernel)"),
 }
 
 
@@ -298,6 +347,20 @@ def fuzz_checks(dev) -> dict:
         e = max_abs_err(wave_wide.dp_rows_kernel(*args, **kw),
                         wave_wide.dp_rows_plain(*args, **kw))
         errs["dp_rows_kernel"] = max(errs["dp_rows_kernel"], e)
+
+    # K4: a ragged batch of ~1,000 pairs, templates of 0-1,300 codes,
+    # bands 64, 96 and 700 mixed, covers with margins, shorter (n - m
+    # negative, odd among them), unrelated and empty; global mode; then
+    # each cells-a-lane width (8, 16, 48) on its own
+    for semi, bands, P in ((True, (64, 96, 700), 1000),
+                           (False, (64, 96, 700), 300),
+                           (True, (64,), 300), (True, (200,), 300),
+                           (True, (700,), 100), (False, (96,), 300)):
+        args = band_align.pack_pairs(
+            align_pairs_batch(rng, P, bands=bands, semiglobal=semi), dev)
+        e = max_abs_err(band_align.band_align_kernel(*args, semi),
+                        band_align.band_align_plain(*args, semi))
+        errs[K4] = max(errs[K4], e)
     torch.cuda.synchronize()
     return errs
 
@@ -317,10 +380,13 @@ LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
 
 
-def _row_loop(insns: list, labels: dict) -> tuple[int, int]:
+def _row_loop(insns: list, labels: dict,
+              most_loads: bool = False) -> tuple[int, int]:
     """(instructions, global loads) of the smallest loop that holds a
     global load: the row loop, whose body is straight-line code over
-    one or more 16-row groups (K1/K2) or rows (K3)."""
+    one or more 16-row groups (K1/K2) or rows (K3).  most_loads: the
+    loop with the most global loads instead (K4's row loop loads a
+    lane's cover chars, its walk one flag byte a step)."""
     ends = {}
     for addr, text in insns:
         op = text.split()
@@ -338,7 +404,13 @@ def _row_loop(insns: list, labels: dict) -> tuple[int, int]:
                 and not t.split()[-1].startswith("NOP")]
         n_ld = sum(1 for t in body
                    if any(w.startswith("LDG") for w in t.split()[:2]))
-        if n_ld and (best is None or len(body) < best[0]):
+        if not n_ld or best is None:
+            better = bool(n_ld)
+        elif most_loads:
+            better = n_ld > best[1]
+        else:
+            better = len(body) < best[0]
+        if better:
             best = (len(body), n_ld)
     if best is None:
         raise SystemExit("chip_smoke: no row loop found in the SASS")
@@ -378,15 +450,31 @@ def sass_ops_per_row(lib_path: Path) -> dict:
         kern = next((k for k in KERNELS if k in fn), None)
         if kern is None:
             continue
+        if kern == K4:
+            # the row loop: a lane's C cover chars and the template char
+            n_insn, n_ld = _row_loop(insns, labels, most_loads=True)
+            if n_ld >= 2:
+                out[fn] = dict(kernel=kern, insns=n_insn, loads=n_ld,
+                               rows=1, lanes=n_ld - 1,
+                               per_row=n_insn / (n_ld - 1))
+            continue
         n_insn, n_ld = _row_loop(insns, labels)
         rows = n_ld / LOADS_PER_ROW[kern]
         lanes = LANES.get(kern, 1)
         out[fn] = dict(kernel=kern, insns=n_insn, loads=n_ld, rows=rows,
                        lanes=lanes, per_row=n_insn / rows / lanes)
-    missing = set(KERNELS) - {v["kernel"] for v in out.values()}
+    missing = set(TPU_KERNELS) - {v["kernel"] for v in out.values()}
     if missing:
         raise SystemExit(f"chip_smoke: no SASS for {sorted(missing)}")
     return out
+
+
+def k4_ops_per_cell(sass: dict) -> float:
+    """K4's operations per DP cell: the smaller of the estimate and the
+    largest SASS count per cell over its instances (8, 16 or 48 cells a
+    lane)."""
+    counts = [v["per_row"] for v in sass.values() if v["kernel"] == K4]
+    return min([K4_OPS_PER_CELL] + ([max(counts)] if counts else []))
 
 
 def ops_per_row(name: str, kw, sass: dict) -> float:
@@ -413,9 +501,16 @@ def work(name: str, a, kw, out, sass: dict,
     later full-depth launch re-runs from row 0 and counts, so each unit
     counts once per pass.  K2: sum(alim) of its extents; the wide trace
     128 lanes times sum(alim); the chunk form the rows of its live seeds
-    times 128 lanes."""
+    times 128 lanes.  K4: the DP cells, (m+1) x (2 band + 1) a pair."""
     nb = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
                         for t in ts if torch.is_tensor(t))
+    if name == K4:
+        # cells (m+1) x (2 band + 1) of each pair; bytes: the inputs, the
+        # flag scratch and the ops each once
+        m = (a[1][1:] - a[1][:-1]).to(torch.int64)
+        cells = int(((m + 1) * (2 * a[4].to(torch.int64) + 1)).sum())
+        return cells, cells * k4_ops_per_cell(sass), nb(a[:5]) + cells + \
+            nb(out)
     if name == "bp_extend_kernel":
         bva = out[1].to(torch.int64)
         if full_rows is not None and a[8] < full_rows:
@@ -598,6 +693,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 def capped(name: str, a, kw):
     """The first CAP work items of a launch, as a launch of their own."""
+    if name == K4:
+        ta, ao, tb, bo, band = a[:5]
+        P = min(CAP, band.shape[0])
+        return (ta[:int(ao[P])], ao[:P + 1], tb[:int(bo[P])], bo[:P + 1],
+                band[:P], *a[5:]), dict(kw)
     if name == "bp_extend_kernel":
         sel = wave_bp.longest_first(a[4], a[5])[:CAP]
         return (*a[:2], *[x[sel] for x in a[2:7]], *a[7:]), dict(kw)
@@ -1389,141 +1489,138 @@ def stage_files(w: str) -> list:
                   and not f.startswith("reads"))
 
 
-def stages_phase(dev, card: str) -> dict:
-    """Phase 9 (see the module docstring).  Returns the phase's numbers
-    and the launches of each kernel in it."""
+def stages_phase(dev, card: str, w: str) -> dict:
+    """Phase 9 (see the module docstring) in the empty directory w, which
+    the caller removes (phase 10 assembles there first).  Returns the
+    phase's numbers and the launches of each kernel in it."""
     from damar_tpu_torch.core.config import MaskConfig, ScrubConfig
     from damar_tpu_torch.formats import tracks
     from damar_tpu_torch.ops.seeding import (REF_TANDEM_HIT_CAP,
                                              REF_TANDEM_SEED_CAP)
     from damar_tpu_torch.pipeline import masking
-    w = tempfile.mkdtemp(prefix="damar_smoke_stages_")
-    try:
-        t0 = time.time()
-        sim = sample_reads(make_genome(GENOME, seed=SEED,
-                                       n_repeats=STAGE_REPEATS,
-                                       tandem=STAGE_TANDEMS),
-                           coverage=COVERAGE, mean_len=MEAN_LEN, err=ERR,
-                           seed=SEED + 1)
-        total_bp = sum(len(r) for r in sim.reads)
-        write_sim_fasta(f"{w}/reads.fasta", sim)
-        del sim
-        dazzdb.create_db(f"{w}/RAW.db", [f"{w}/reads.fasta"])
-        size_mb = -(-total_bp // (STAGE_BLOCKS * 1_000_000))
-        db = dazzdb.db_split(f"{w}/RAW.db", size_mb=size_mb, cutoff=500)
-        split = [int(db.reads["rlen"][db.block_reads(b)].sum())
-                 for b in range(1, db.nblocks + 1)]
-        log(f"stages: {db.ureads} reads, {total_bp} bp, split at {size_mb} "
-            f"Mbp with cutoff 500 into {db.nblocks} blocks of {split} bp; "
-            f"reads, FASTA, DB and split {time.time() - t0:.1f} s")
-        if db.nblocks != STAGE_BLOCKS:
-            raise SystemExit(f"chip_smoke: stages: {db.nblocks} blocks")
-        cfgs = (OverlapConfig(), MaskConfig(), ScrubConfig())
-        caps = dict(hit_cap=HIT_CAP, seed_cap=SEED_CAP)
-        spy = {}
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = run_stages(w, cfgs, dev, caps, spy=spy)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = read_launches()
-        missing = [k for k in MAIN_PATH if launches[k] <= 0]
-        if missing:
-            raise SystemExit(f"chip_smoke: kernels not launched by the "
-                             f"stages: {missing}")
-        log(f"stages (phases 2-6): wall {wall:.4f} s on {card}; launches "
-            f"{launches}")
-        # ---- checks: check_las, tracks, mirrors ----
-        t0 = time.time()
-        db, fdb, trlen = res["db"], res["fdb"], res["trlen"]
-        rl, frl = db.reads["rlen"], fdb.reads["rlen"]
-        n_las = 0
-        for f in sorted(os.listdir(w)):
-            if not f.endswith(".las"):
-                continue
-            lens = trlen if f in ("FIX.scrubbed.las", "FIX.filtered.las") \
-                else (rl if f.startswith("RAW") else frl)
-            problems = check_las(lasmod.read_las(f"{w}/{f}"), lens)
-            if problems:
-                raise SystemExit(f"chip_smoke: stages: check_las {f}: "
-                                 f"{problems[:5]}")
-            n_las += 1
-        bad = {name: tracks_bad(tracks.read_track(f"{w}/{d}.db", name), L)
-               for d, name, L in (("RAW", "dust", rl), ("RAW", "tan", rl),
-                                  ("FIX", "repeats", trlen))}
-        bad["trim"] = tracks_bad(tracks.read_track(f"{w}/FIX.db", "trim"),
-                                 frl, empty_ok=True)
-        if any(bad.values()):
-            raise SystemExit(f"chip_smoke: stages: reads with track "
-                             f"intervals out of their read or unsorted: "
-                             f"{bad}")
-        filt = lasmod.read_las(f"{w}/FIX.filtered.las")
-        mirror_disc, mirror_none = kept_with_discarded_mirror(filt)
-        log(f"stages: check_las clean on {n_las} files; dust, tan, trim and "
-            f"repeats intervals in their reads and sorted; filtered file: "
-            f"{mirror_disc} kept records whose mirror is discarded, "
-            f"{mirror_none} with no mirror ({time.time() - t0:.1f} s)")
-        # ---- the spied launches against the plain versions ----
-        t0 = time.time()
-        paths = {}
-        for what, name in (("tan", "bp_extend_kernel"),
-                           ("patch_retrace", "wide_trace_kernel"),
-                           ("scrub_retrace", "wide_trace_kernel")):
-            acc = spy.get(what)
-            if acc is None:
-                raise SystemExit(f"chip_smoke: stages: no {what} ran")
-            paths[what] = dict(kernel=name, launches=acc["launches"][name],
-                               ms=round(acc["ms"][name], 4),
-                               profiled_launches=acc["profiled"][name])
-            log(f"stages, {what}: {name} {acc['launches'][name]} launches "
-                f"({acc['profiled'][name]} in the profile), "
-                f"{acc['ms'][name]:.4f} ms device time on {card}")
-        held = {}
-        for what, (name, m) in STAGE_HELD.items():
-            calls = spy[what]["calls"].get(name, [])[:m]
-            if len(calls) < m:
-                raise SystemExit(f"chip_smoke: stages: {what} launched "
-                                 f"{name} {len(calls)} times")
-            held.setdefault(name, []).extend(
-                capped(name, a, kw) for a, kw, _ in calls)
-        del spy
-        hold_launches("stages", held)
-        log(f"stages: launches {{name: n}} held equal to their plain "
-            f"versions: { {k: len(v) for k, v in held.items()} } "
-            f"({time.time() - t0:.1f} s)")
-        # ---- fault 3g: the search again under damar_tpu's caps ----
-        t0 = time.time()
-        ocfg, mcfg, _ = cfgs
-        for b in range(1, db.nblocks + 1):
-            blk = block_from_db(db, b)
-            st = {}
-            t = masking.tandem_track(blk, ocfg, mcfg,
-                                     hit_cap=REF_TANDEM_HIT_CAP,
-                                     seed_cap=REF_TANDEM_SEED_CAP, stats=st,
-                                     device=dev)
-            sized = res["tan_search"][b - 1]
-            log(f"fault 3g, block {b}: sized buffers: total_hits "
-                f"{sized['total_hits']}, nhits {sized['nhits']}, seeds "
-                f"{sized['nseeds']} of {sized['total_seeds']}, tan bp "
-                f"{sized['tan_bp']}; damar_tpu's caps (hit_cap "
-                f"{REF_TANDEM_HIT_CAP}, seed_cap {REF_TANDEM_SEED_CAP}): "
-                f"nhits {st['nhits']} of "
-                f"{st['total_hits']}, seeds {st['nseeds']} of "
-                f"{st['total_seeds']}, tan bp {t.masked_bp()}")
-            del blk
-        log(f"fault 3g runs: {time.time() - t0:.1f} s")
-        # ---- a small DB: card == CPU path, file by file ----
-        t0 = time.time()
-        small = stage_small(dev)
-        log(f"stages, small DB: {small} ({time.time() - t0:.1f} s)")
-        return dict(launches=launches, wall_s=wall, walls=res["walls"],
-                    tan_bp=res["tan_bp"], dust_bp=res["dust_bp"],
-                    kept_records=res["kept_records"],
-                    filtered_records=res["filtered_records"],
-                    mirror_discarded=mirror_disc, paths=paths, small=small)
-    finally:
-        shutil.rmtree(w, ignore_errors=True)
+    t0 = time.time()
+    genome = make_genome(GENOME, seed=SEED, n_repeats=STAGE_REPEATS,
+                         tandem=STAGE_TANDEMS)
+    sim = sample_reads(genome, coverage=COVERAGE, mean_len=MEAN_LEN,
+                       err=ERR, seed=SEED + 1)
+    total_bp = sum(len(r) for r in sim.reads)
+    write_sim_fasta(f"{w}/reads.fasta", sim)
+    del sim
+    dazzdb.create_db(f"{w}/RAW.db", [f"{w}/reads.fasta"])
+    size_mb = -(-total_bp // (STAGE_BLOCKS * 1_000_000))
+    db = dazzdb.db_split(f"{w}/RAW.db", size_mb=size_mb, cutoff=500)
+    split = [int(db.reads["rlen"][db.block_reads(b)].sum())
+             for b in range(1, db.nblocks + 1)]
+    log(f"stages: {db.ureads} reads, {total_bp} bp, split at {size_mb} "
+        f"Mbp with cutoff 500 into {db.nblocks} blocks of {split} bp; "
+        f"reads, FASTA, DB and split {time.time() - t0:.1f} s")
+    if db.nblocks != STAGE_BLOCKS:
+        raise SystemExit(f"chip_smoke: stages: {db.nblocks} blocks")
+    cfgs = (OverlapConfig(), MaskConfig(), ScrubConfig())
+    caps = dict(hit_cap=HIT_CAP, seed_cap=SEED_CAP)
+    spy = {}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = run_stages(w, cfgs, dev, caps, spy=spy)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()
+    missing = [k for k in MAIN_PATH if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernels not launched by the "
+                         f"stages: {missing}")
+    log(f"stages (phases 2-6): wall {wall:.4f} s on {card}; launches "
+        f"{launches}")
+    # ---- checks: check_las, tracks, mirrors ----
+    t0 = time.time()
+    db, fdb, trlen = res["db"], res["fdb"], res["trlen"]
+    rl, frl = db.reads["rlen"], fdb.reads["rlen"]
+    n_las = 0
+    for f in sorted(os.listdir(w)):
+        if not f.endswith(".las"):
+            continue
+        lens = trlen if f in ("FIX.scrubbed.las", "FIX.filtered.las") \
+            else (rl if f.startswith("RAW") else frl)
+        problems = check_las(lasmod.read_las(f"{w}/{f}"), lens)
+        if problems:
+            raise SystemExit(f"chip_smoke: stages: check_las {f}: "
+                             f"{problems[:5]}")
+        n_las += 1
+    bad = {name: tracks_bad(tracks.read_track(f"{w}/{d}.db", name), L)
+           for d, name, L in (("RAW", "dust", rl), ("RAW", "tan", rl),
+                              ("FIX", "repeats", trlen))}
+    bad["trim"] = tracks_bad(tracks.read_track(f"{w}/FIX.db", "trim"),
+                             frl, empty_ok=True)
+    if any(bad.values()):
+        raise SystemExit(f"chip_smoke: stages: reads with track "
+                         f"intervals out of their read or unsorted: "
+                         f"{bad}")
+    filt = lasmod.read_las(f"{w}/FIX.filtered.las")
+    mirror_disc, mirror_none = kept_with_discarded_mirror(filt)
+    log(f"stages: check_las clean on {n_las} files; dust, tan, trim and "
+        f"repeats intervals in their reads and sorted; filtered file: "
+        f"{mirror_disc} kept records whose mirror is discarded, "
+        f"{mirror_none} with no mirror ({time.time() - t0:.1f} s)")
+    # ---- the spied launches against the plain versions ----
+    t0 = time.time()
+    paths = {}
+    for what, name in (("tan", "bp_extend_kernel"),
+                       ("patch_retrace", "wide_trace_kernel"),
+                       ("scrub_retrace", "wide_trace_kernel")):
+        acc = spy.get(what)
+        if acc is None:
+            raise SystemExit(f"chip_smoke: stages: no {what} ran")
+        paths[what] = dict(kernel=name, launches=acc["launches"][name],
+                           ms=round(acc["ms"][name], 4),
+                           profiled_launches=acc["profiled"][name])
+        log(f"stages, {what}: {name} {acc['launches'][name]} launches "
+            f"({acc['profiled'][name]} in the profile), "
+            f"{acc['ms'][name]:.4f} ms device time on {card}")
+    held = {}
+    for what, (name, m) in STAGE_HELD.items():
+        calls = spy[what]["calls"].get(name, [])[:m]
+        if len(calls) < m:
+            raise SystemExit(f"chip_smoke: stages: {what} launched "
+                             f"{name} {len(calls)} times")
+        held.setdefault(name, []).extend(
+            capped(name, a, kw) for a, kw, _ in calls)
+    del spy
+    hold_launches("stages", held)
+    log(f"stages: launches {{name: n}} held equal to their plain "
+        f"versions: { {k: len(v) for k, v in held.items()} } "
+        f"({time.time() - t0:.1f} s)")
+    # ---- fault 3g: the search again under damar_tpu's caps ----
+    t0 = time.time()
+    ocfg, mcfg, _ = cfgs
+    for b in range(1, db.nblocks + 1):
+        blk = block_from_db(db, b)
+        st = {}
+        t = masking.tandem_track(blk, ocfg, mcfg,
+                                 hit_cap=REF_TANDEM_HIT_CAP,
+                                 seed_cap=REF_TANDEM_SEED_CAP, stats=st,
+                                 device=dev)
+        sized = res["tan_search"][b - 1]
+        log(f"fault 3g, block {b}: sized buffers: total_hits "
+            f"{sized['total_hits']}, nhits {sized['nhits']}, seeds "
+            f"{sized['nseeds']} of {sized['total_seeds']}, tan bp "
+            f"{sized['tan_bp']}; damar_tpu's caps (hit_cap "
+            f"{REF_TANDEM_HIT_CAP}, seed_cap {REF_TANDEM_SEED_CAP}): "
+            f"nhits {st['nhits']} of "
+            f"{st['total_hits']}, seeds {st['nseeds']} of "
+            f"{st['total_seeds']}, tan bp {t.masked_bp()}")
+        del blk
+    log(f"fault 3g runs: {time.time() - t0:.1f} s")
+    # ---- a small DB: card == CPU path, file by file ----
+    t0 = time.time()
+    small = stage_small(dev)
+    log(f"stages, small DB: {small} ({time.time() - t0:.1f} s)")
+    return dict(launches=launches, wall_s=wall, walls=res["walls"],
+                tan_bp=res["tan_bp"], dust_bp=res["dust_bp"],
+                kept_records=res["kept_records"],
+                filtered_records=res["filtered_records"],
+                mirror_discarded=mirror_disc, paths=paths, small=small,
+                genome_bp=len(genome))
 
 
 def stage_small(dev) -> dict:
@@ -1571,6 +1668,313 @@ def stage_small(dev) -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+def read_contigs(w: str) -> list:
+    from damar_tpu_torch.formats.fasta import read_fasta
+    return read_fasta(os.path.join(w, "CONTIGS.fasta"))[1]
+
+
+def edges_by_mirror(g, las) -> tuple[int, int]:
+    """(edges with no twin, edges whose read pair has a kept record one
+    way and none the other: their mirror record was discarded, fault
+    3i), over the live and reduced edges of a string graph built from
+    the filtered file `las`.  The graph synthesizes each edge's twin
+    from the same record, so the first count stays 0 where the second
+    does not."""
+    h = las.columns.headers
+    live = (h[:, lasmod.H_FLAGS] & 0x4) == 0
+    kept = set(zip(h[live, lasmod.H_AREAD].tolist(),
+                   h[live, lasmod.H_BREAD].tolist()))
+    edges = [e for v in list(g.edges) for e in g.edges[v]]
+    no_twin = sum(1 for e in edges if g.twin_of(e) is None)
+    gone = sum(1 for e in edges
+               if ((e.src.read, e.dst.read) in kept)
+               != ((e.dst.read, e.src.read) in kept))
+    return no_twin, gone
+
+
+def assemble_stages(w: str, dev, card: str, genome_bp: int) -> dict:
+    """Phase 10a: run_pipeline(polish=False) on phase 9's workdir, which
+    holds run.py's own files, so it resumes at phase 7 (the string graph
+    and the tour).  Gate: a contig, and contigs summing to >= 85% of the
+    genome."""
+    from damar_tpu_torch.pipeline import touring
+    from damar_tpu_torch.pipeline.contigs import assembly_stats
+    from damar_tpu_torch.pipeline.run import run_pipeline
+    seen = {}
+    real = touring.assemble
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        seen["graph"] = out[2]
+        return out
+    touring.assemble = spy
+    try:
+        t0 = time.time()
+        rep = run_pipeline(f"{w}/reads.fasta", w, polish=False,
+                           verbose=False, device=dev)
+        wall = time.time() - t0
+    finally:
+        touring.assemble = real
+    g = seen["graph"]
+    sided = edges_by_mirror(g, lasmod.read_las(f"{w}/FIX.filtered.las"))
+    verts = {x for es in g.edges.values() for e in es
+             for x in (e.src, e.dst)}
+    n_all = sum(len(es) for es in g.edges.values())
+    lens = [len(c) for c in read_contigs(w)]
+    stats = assembly_stats(lens, genome_bp)
+    ph = rep["phases"]
+    out = dict(vertices=len(verts), edges=n_all, live_edges=g.n_edges(),
+               one_sided_edges=sided[0], edges_mirror_discarded=sided[1],
+               contained_reads=len(g.contained), contigs=len(lens),
+               lengths=lens[:10], stats=stats,
+               phase7_wall_s=ph["assemble"]["wall_s"], wall_s=wall,
+               skipped=[ph["overlap1"]["skipped"], ph["overlap2"]["skipped"]])
+    log(f"phase 10a, phase 7 on the stages unit: {out} on {card}")
+    if not lens or stats["total_bp"] < 0.85 * genome_bp:
+        raise SystemExit(f"chip_smoke: phase 10a: contigs {lens[:10]} "
+                         f"sum to {stats['total_bp']} of {genome_bp} bp")
+    if ph["overlap1"]["pairs"] or ph["overlap2"]["pairs"]:
+        raise SystemExit("chip_smoke: phase 10a did not resume at phase 7")
+    return out
+
+
+class FirstLaunch:
+    """While a path runs: K4's launches, the DP cells of all of them (for
+    the bound), each one's device time (a pair of CUDA events around the
+    kernel alone), and the arguments of the first one, capped at CAP
+    pairs; the launches go through unchanged.  (A torch.profiler window
+    over the whole assembly took ~140 s to read back on the H100's host,
+    more than the assembly's own phase 7.)"""
+
+    def __init__(self):
+        self.first, self.cells, self.calls = None, 0, 0
+
+    def __enter__(self):
+        self.orig = band_align.band_align_kernel
+        self.events = []
+        band_align.band_align.events = self.events
+
+        def spy(*a, **kw):
+            n0 = band_align.band_align.launches
+            out = self.orig(*a, **kw)
+            if band_align.band_align.launches != n0:
+                m = (a[1][1:] - a[1][:-1]).to(torch.int64)
+                self.cells += int(((m + 1) * (2 * a[4].to(torch.int64)
+                                              + 1)).sum())
+                self.calls += 1
+                if self.first is None:
+                    self.first = capped(K4, a, kw)
+            return out
+        band_align.band_align_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        band_align.band_align_kernel = self.orig
+        band_align.band_align.events = None
+        return False
+
+    def device_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(e0.elapsed_time(e1) for e0, e1 in self.events)
+
+
+class HostTimers:
+    """Host wall of each call of the named functions of a module while
+    the block runs (summed per name)."""
+
+    def __init__(self, mod, names):
+        self.mod, self.names, self.s = mod, names, {n: 0.0 for n in names}
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.mod, n) for n in self.names}
+        for n, fn in self.orig.items():
+            def timed(*a, _fn=fn, _n=n, **kw):
+                t0 = time.time()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.s[_n] += time.time() - t0
+            setattr(self.mod, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+        return False
+
+
+def assembly_phase(dev, card: str, sass: dict) -> dict:
+    """Phase 10b: the whole pipeline with polish, from FASTA (see the
+    module docstring).  Returns the phase's numbers, each kernel's
+    launches in it and K4's first launch (capped) for the timing row."""
+    from damar_tpu_torch.core.config import PipelineConfig
+    from damar_tpu_torch.pipeline import consensus
+    from damar_tpu_torch.pipeline.contigs import assembly_stats
+    from damar_tpu_torch.pipeline.run import run_pipeline
+    from damar_tpu_torch.utils.sim import kmer_hit_rate
+    w = tempfile.mkdtemp(prefix="damar_smoke_assembly_")
+    try:
+        t0 = time.time()
+        genome = make_genome(ASM_GENOME, seed=ASM_SEED,
+                             n_repeats=ASM_REPEATS, repeat_len=1500,
+                             tandem=ASM_TANDEMS, tandem_period=90,
+                             tandem_len=1800)
+        sim = sample_reads(genome, coverage=COVERAGE, mean_len=MEAN_LEN,
+                           err=ERR, seed=ASM_SEED + 1, chimera_frac=0.06)
+        total_bp = sum(len(r) for r in sim.reads)
+        write_sim_fasta(f"{w}/reads.fasta", sim)
+        n_chim = int(sim.chimeric.sum())
+        del sim
+        block_mb = -(-total_bp // 2_000_000)
+        cfg = PipelineConfig(block_mb=block_mb)
+        log(f"assembly: {len(genome)} bp genome, {total_bp} bp of reads "
+            f"({n_chim} chimeric), block_mb {block_mb}; setup "
+            f"{time.time() - t0:.1f} s")
+        reset_launches()
+        torch.cuda.synchronize()
+        with FirstLaunch() as k4, HostTimers(consensus, (
+                "correct_reads", "polish_rounds",
+                "finish_polish_raw_multi")) as timers:
+            t0 = time.time()
+            rep = run_pipeline(f"{w}/reads.fasta", w, cfg, polish=True,
+                               verbose=False, device=dev)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = read_launches()
+        k4_ms = k4.device_ms()
+        if len(k4.events) != launches[K4]:
+            raise SystemExit(f"chip_smoke: {len(k4.events)} K4 launches "
+                             f"timed, {launches[K4]} counted")
+        contigs = read_contigs(w)
+        lens = [len(c) for c in contigs]
+        longest = max(contigs, key=len) if contigs else np.zeros(0)
+        hit = kmer_hit_rate(genome, longest)
+        stats = assembly_stats(lens, len(genome))
+        ph = rep["phases"]
+        walls = {k: v["wall_s"] for k, v in ph.items()}
+        bms, by = bound(k4.cells * k4_ops_per_cell(sass), k4.cells)
+        mean_k4 = k4_ms / max(launches[K4], 1)
+        out = dict(genome_bp=len(genome), reads_bp=total_bp,
+                   blocks=ph["ingest"]["blocks"], block_mb=block_mb,
+                   wall_s=wall, phase_walls=walls,
+                   assemble_split_s={k: round(v, 4)
+                                     for k, v in timers.s.items()},
+                   contigs=len(lens), lengths=lens[:10], stats=stats,
+                   longest_kmer_hit_rate=hit, chimeric_reads=n_chim,
+                   k4=dict(launches=launches[K4], device_ms=k4_ms,
+                           mean_launch_ms=mean_k4, cells=k4.cells,
+                           bound_ms=bms, bound_by=by,
+                           bound_share=bms / k4_ms if k4_ms else None))
+        log(f"phase 10b, the whole pipeline with polish: {out} on {card}")
+        missing = [k for k in MAIN_PATH + (K4,) if launches[k] <= 0]
+        if missing:
+            raise SystemExit(f"chip_smoke: kernels not launched by the "
+                             f"assembly: {missing}")
+        if not lens or stats["total_bp"] < 0.85 * len(genome):
+            raise SystemExit(f"chip_smoke: phase 10b: contigs {lens[:10]} "
+                             f"sum to {stats['total_bp']} of {len(genome)}")
+        if hit <= 0.45:
+            raise SystemExit(f"chip_smoke: phase 10b: the longest contig's "
+                             f"k-mer hit rate {hit:.4f} <= 0.45")
+        return dict(out, launches=launches, first=k4.first)
+    finally:
+        shutil.rmtree(w, ignore_errors=True)
+
+
+def assembly_tiny(dev) -> dict:
+    """Phase 10c: run_pipeline(polish=True) on the 12 kbp genome of the
+    CPU tests, on the card and on the CPU path: CONTIGS.fasta, every .las,
+    track and FIX.fasta byte-equal, report.json equal but for its walls
+    and paths."""
+    from damar_tpu_torch.core.config import PipelineConfig
+    from damar_tpu_torch.pipeline.run import run_pipeline
+    g = make_genome(12_000, seed=81)
+    sim = sample_reads(g, coverage=10, mean_len=2500, err=0.13, seed=82)
+    cfg = PipelineConfig(block_mb=1, min_read_len=500)
+    base = tempfile.mkdtemp(prefix="damar_smoke_tiny_asm_")
+    try:
+        reps, walls = {}, {}
+        for d in (dev, "cpu"):
+            w = f"{base}/{'card' if d != 'cpu' else 'cpu'}"
+            os.makedirs(w)
+            write_sim_fasta(f"{w}/reads.fasta", sim)
+            t0 = time.time()
+            reps[w] = run_pipeline(f"{w}/reads.fasta", w, cfg, polish=True,
+                                   verbose=False, device=d)
+            walls[str(d)] = time.time() - t0
+        (wc, rc), (wp, rp) = reps.items()
+        names = stage_files(wc)
+        if names != stage_files(wp) or "CONTIGS.fasta" not in names:
+            raise SystemExit("chip_smoke: tiny assembly: the file lists "
+                             "differ")
+        for f in names:
+            if not filecmp.cmp(f"{wc}/{f}", f"{wp}/{f}", shallow=False):
+                raise SystemExit(f"chip_smoke: tiny assembly: {f} differs "
+                                 f"between the card and the CPU path")
+
+        def strip(r):
+            r = json.loads(json.dumps(r))
+            r.pop("total_wall_s")
+            r.pop("contig_fasta")
+            for v in r["phases"].values():
+                v.pop("wall_s")
+            return r
+        if strip(rc) != strip(rp):
+            raise SystemExit("chip_smoke: tiny assembly: report.json "
+                             "differs between the card and the CPU path")
+        return dict(files=len(names),
+                    contigs=rc["phases"]["assemble"]["contigs"],
+                    lengths=rc["phases"]["assemble"]["lengths"],
+                    card_s=walls[str(dev)], cpu_s=walls["cpu"])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def k4_row(asm: dict, errs: dict, sass: dict, card: str) -> tuple:
+    """K4's row of the kernels line from phase 10b's results: its first
+    launch there (capped) held against band_align_plain and timed, its
+    launches, device time and bound over the assembly.  Pops the first
+    launch, K4's numbers and the launches from asm; returns (row, each
+    kernel's launches in the assembly)."""
+    first = asm.pop("first")
+    if first is None:
+        raise SystemExit("chip_smoke: no K4 launch was kept")
+    a, k = first
+    out = band_align.band_align_kernel(*a, **k)
+    e = max_abs_err(out, band_align.band_align_plain(*a, **k))
+    errs[K4] = max(errs[K4], e)
+    bms, by = bound(*work(K4, a, k, out, sass)[1:])
+    ms = kernel_ms(K4, lambda: band_align.band_align_kernel(*a, **k), 5)
+    plain_ms = cuda_ms(lambda: band_align.band_align_plain(*a, **k), 1)
+    log(f"{K4}, first assembly launch ({a[4].shape[0]} pairs): kernel "
+        f"{ms:.4f} ms device time, bound {bms:.4f} ms ({by}), plain "
+        f"{plain_ms:.4f} ms, max_abs_err {e} on {card}")
+    if errs[K4]:
+        raise SystemExit("chip_smoke: K4 disagrees with its plain version "
+                         "at the assembly's shapes")
+    k4 = asm.pop("k4")
+    launches = asm.pop("launches")
+    row = dict(
+        name=K4, route="cuda", source=KERNELS[K4][4],
+        replaces=KERNELS[K4][5], launches=k4["launches"],
+        max_abs_err=errs[K4], ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        bound_ms=round(bms, 4), bound_by=by, library_ms=None,
+        library="none: no PyTorch call computes a banded edit alignment "
+                "with traceback",
+        pass_ms=round(k4["device_ms"], 4),
+        pass_bound_ms=round(k4["bound_ms"], 4), pass_bound_by=k4["bound_by"],
+        bound_share=(round(k4["bound_share"], 4) if k4["bound_share"]
+                     else None),
+        pass_rows=k4["cells"], sweep_launches=0, stage_launches=0,
+        assembly_launches=launches[K4],
+        note="launches, pass_ms, pass_bound_ms and bound_share are the "
+             "whole assembly of phase 10b (pass_rows: its DP cells; "
+             "pass_ms by CUDA events around each launch); ms, plain_ms, "
+             "bound_ms its first launch there, capped (ms under "
+             "torch.profiler)")
+    return row, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--passes", type=int, default=1,
@@ -1608,7 +2012,7 @@ def main(argv=None) -> int:
         log(f"SASS {fn[:60]}: row loop {v['insns']} instructions, "
             f"{v['loads']} global loads = {v['rows']:g} rows, "
             f"{v['per_row']:.2f} per row (estimate "
-            f"{OPS_ESTIMATE[v['kernel']]})")
+            f"{OPS_ESTIMATE.get(v['kernel'], K4_OPS_PER_CELL)})")
 
     t0 = time.time()
     errs = fuzz_checks(dev)
@@ -1734,7 +2138,8 @@ def main(argv=None) -> int:
 
     # ---- each kernel vs plain at its first main-path launch, timed ----
     rows = []
-    for name, (_, mod, attr, plain, src, replaces) in KERNELS.items():
+    for name in TPU_KERNELS:
+        _, mod, attr, plain, src, replaces = KERNELS[name]
         launch = getattr(mod, attr)
         if name in MAIN_PATH:
             if not spy.calls[name]:
@@ -1833,17 +2238,42 @@ def main(argv=None) -> int:
     if any(r["launches"] <= 0 for r in rows):
         raise SystemExit("chip_smoke: a kernel was launched on no path")
 
-    # ---- the stages from a DB on disk: masking, patch, scrub ----
+    # ---- the stages from a DB on disk: masking, patch, scrub; then
+    # phase 7 there ----
     torch.cuda.empty_cache()
     t0 = time.time()
-    staged = stages_phase(dev, card)
-    log(f"stages phase: {time.time() - t0:.1f} s")
+    w = tempfile.mkdtemp(prefix="damar_smoke_stages_")
+    try:
+        staged = stages_phase(dev, card, w)
+        log(f"stages phase: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        staged["phase7"] = assemble_stages(w, dev, card,
+                                           staged.pop("genome_bp"))
+        log(f"phase 10a: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(w, ignore_errors=True)
     for r in rows:
         r["stage_launches"] = staged["launches"][r["name"]]
     staged.pop("launches")
 
+    # ---- the whole assembly from FASTA, with polish ----
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    asm = assembly_phase(dev, card, sass)
+    log(f"phase 10b: {time.time() - t0:.1f} s")
+    row, launches_asm = k4_row(asm, errs, sass, card)
+    for r in rows:
+        r["assembly_launches"] = launches_asm[r["name"]]
+    rows.append(row)
+
+    # ---- a tiny assembly on the card and on the CPU path ----
+    t0 = time.time()
+    asm["tiny"] = assembly_tiny(dev)
+    log(f"phase 10c: {asm['tiny']} ({time.time() - t0:.1f} s)")
+
     print(json.dumps({"kernels": rows, "wide_retry_routes": routes,
                       "wide_route": wide, "sweep": swept, "stages": staged,
+                      "assembly": asm,
                       "profiler_lost_launches": LOST_LAUNCHES}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
 """Phase configurations: the fields of damar_tpu.core.config's
 OverlapConfig that the port reads, with the same defaults (daligner
--k14 -w6 -h35 -e.70 -l1000 -s100), and its MaskConfig and ScrubConfig
-as they are.  The reference's use_pallas switch
+-k14 -w6 -h35 -e.70 -l1000 -s100), and its MaskConfig, ScrubConfig,
+TourConfig and PipelineConfig as they are.  The reference's use_pallas
+switch
 and launch widths (seed_batch, seed_batch_dev) have no counterpart: each
 dp_kernel has one implementation here, the CUDA kernels on the card and
 their plain versions on the CPU."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -71,3 +72,26 @@ class ScrubConfig:
     filter_fuzz: int = 40        # dovetail end slop
     filter_best_n: int = 0       # LAfilter best-n-per-end: keep at most
                                  # n dovetails per read end (0 = off)
+
+
+@dataclass(frozen=True)
+class TourConfig:
+    """OGbuild/OGtour parameters."""
+    min_dovetail: int = 1000     # min dovetail overlap for a graph edge
+    bubble_max: int = 8          # max path length when popping bubbles
+    spur_len: int = 3            # max spur length to clip
+    polish_rounds: int = 3       # staggered consensus rounds
+    corrector_rounds: int = 2    # read-correction passes (pass 2 votes
+                                 # with pass-1-corrected covers)
+    finish_raw_rounds: int = 4   # raw-read recruitment finishing rounds
+                                 # (0 = off)
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    overlap: OverlapConfig = field(default_factory=OverlapConfig)
+    mask: MaskConfig = field(default_factory=MaskConfig)
+    scrub: ScrubConfig = field(default_factory=ScrubConfig)
+    tour: TourConfig = field(default_factory=TourConfig)
+    block_mb: int = 200          # DBsplit -s
+    min_read_len: int = 500      # DBsplit -x

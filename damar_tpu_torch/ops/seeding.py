@@ -314,7 +314,7 @@ def starts_tensor(blk, device) -> torch.Tensor:
 
 def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
                              upper_only: bool = False,
-                             hit_cap: int = 1 << 21,
+                             hit_cap: int | None = None,
                              seed_cap: int = 1 << 17, a_index=None,
                              dev_arrays=None, raw_hint: int | None = None,
                              self_pair: bool = False, bias_lut=None,
@@ -330,7 +330,13 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
     leaving out both raises TypeError.  mask_a/mask_b: optional bool
     tensors on that device.  Returns a dict of seed
     tensors [seed_cap] and host ints (nseeds, total_seeds, total_hits,
-    total_compact, total_emit, tcap, overflow, raw_cap, compact_cap)."""
+    total_compact, total_emit, tcap, overflow, raw_cap, compact_cap).
+
+    hit_cap None sizes the hit buffer from the count phase's exact total
+    (raw_hint is then not read), so the hits are never truncated; a
+    total above _SLICE_CAP raises NotImplementedError (the sliced path
+    is not ported).  An explicit hit_cap is a hard cap, as in damar_tpu,
+    and a truncated fill sets "overflow"."""
     if getattr(cfg, "bias", False) or bias_lut is not None:
         raise NotImplementedError("-b (biased-composition seeding) is "
                                   "not ported")
@@ -370,8 +376,16 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
         bc, bmp = build_index_canonical_packed(
             b_bases, b_rid, _payload_tensor(mpb, dev), cfg.kmer, mask_b)
         lo, cnt, cum, total = match_count(ac, bc, k=cfg.kmer, max_count=t)
-    want_raw = min(int(total) if raw_hint is None else raw_hint, hit_cap)
-    cap = _pow2_cap(want_raw, hit_cap)
+    if hit_cap is None:
+        total = int(total)
+        if total > _SLICE_CAP:
+            raise NotImplementedError(
+                f"{total} hits > {_SLICE_CAP}: the sliced seeding path is "
+                "not ported")
+        cap = _pow2_cap(total, _SLICE_CAP)
+    else:
+        cap = _pow2_cap(min(int(total) if raw_hint is None else raw_hint,
+                            hit_cap), hit_cap)
     if cap > _SLICE_CAP:
         raise NotImplementedError(
             f"hit buffer {cap} > {_SLICE_CAP}: the sliced seeding path "

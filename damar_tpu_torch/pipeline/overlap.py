@@ -64,6 +64,9 @@ TRACE_BUF_BYTES = 1 << 30
 # a sweep prefetches the next pair's uploads only for blocks up to this
 # capacity
 PREFETCH_CAP = 1 << 27
+# the first seed buffer when seed_cap is None (damar_tpu's default cap);
+# it grows to the banding's exact total
+SEED_CAP_START = 1 << 17
 
 log = logging.getLogger(__name__)
 
@@ -943,7 +946,8 @@ def _sync(device) -> None:
 def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
                         cfg: OverlapConfig, self_block: bool,
                         mask_a=None, mask_b=None,
-                        hit_cap: int = 1 << 21, seed_cap: int = 1 << 17,
+                        hit_cap: int | None = None,
+                        seed_cap: int | None = None,
                         emit_mirrors: bool = True,
                         size_hints: dict | None = None, *, device) -> dict:
     """The device phases of a block pair: seeding -> extension ->
@@ -951,8 +955,8 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
     holds its own references to every device tensor the emit reads (the
     trace pool), so a caller may release or clear the blocks' caches
     before the emit has run.  mask_a/mask_b: optional bool[cap] soft
-    masks (numpy).  size_hints: see overlap_block_pair.  device:
-    required, as in overlap_block_pair."""
+    masks (numpy).  hit_cap/seed_cap and size_hints: see
+    overlap_block_pair.  device: required, as in overlap_block_pair."""
     device = torch.device(device)
     blk_b_rc = _rc_cached(blk_b)
     blk_a_rc = _rc_cached(blk_a) if emit_mirrors else None
@@ -985,8 +989,9 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         return find_seeds_canonical_dev(blk_a, blk_b, cfg, **kw)
 
     kw = dict(mask_a=am, mask_b=bm, upper_only=self_block,
-              hit_cap=hit_cap, seed_cap=seed_cap, a_index=a_index,
-              self_pair=self_block)
+              hit_cap=hit_cap,
+              seed_cap=SEED_CAP_START if seed_cap is None else seed_cap,
+              a_index=a_index, self_pair=self_block)
     # hints are a running max of exact measured totals, passed unpadded:
     # the buffer caps are pow2-bucketed downstream, and an undershoot
     # costs one exact grow-retry
@@ -996,21 +1001,26 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         kw["emit_hint"] = size_hints["nnz"]
     seeds = run_seeding(kw)
     # overflow retries grow whichever fixed buffer saturated: the raw
-    # hit buffer (up to hit_cap), the seed buffer (up to 4x the
-    # requested cap), and the fill's emitting-tuple partition
-    seed_cap_max = seed_cap * 4
+    # hit buffer (up to hit_cap; sized from the exact total already
+    # when hit_cap is None), the seed buffer (up to 4x an explicit
+    # seed_cap, without a limit when it is None), and the fill's
+    # emitting-tuple partition
+    seed_cap_max = None if seed_cap is None else seed_cap * 4
     while seeds["overflow"] and (
             (seeds["total_hits"] > seeds["raw_cap"]
-             and seeds["raw_cap"] < hit_cap)
+             and hit_cap is not None and seeds["raw_cap"] < hit_cap)
             or (seeds["total_seeds"] > kw["seed_cap"]
-                and kw["seed_cap"] < seed_cap_max)
+                and (seed_cap_max is None
+                     or kw["seed_cap"] < seed_cap_max))
             or (seeds["total_emit"] > seeds["tcap"]
                 and seeds["tcap"] < seeds["raw_cap"])):
         if seeds["total_hits"] > seeds["raw_cap"]:
             kw = dict(kw, raw_hint=seeds["total_hits"])
         if seeds["total_seeds"] > kw["seed_cap"]:
             sc = kw["seed_cap"]
-            while sc < min(2 * seeds["total_seeds"], seed_cap_max):
+            want = (seeds["total_seeds"] if seed_cap_max is None
+                    else min(2 * seeds["total_seeds"], seed_cap_max))
+            while sc < want:
                 sc *= 2
             kw = dict(kw, seed_cap=sc)
         if seeds["total_emit"] > seeds["tcap"]:
@@ -1022,7 +1032,13 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         if seeds["total_emit"]:
             size_hints["nnz"] = max(seeds["total_emit"],
                                     size_hints.get("nnz", 0) // 2)
+    if seeds["overflow"] and hit_cap is None and seed_cap is None:
+        raise RuntimeError(
+            f"seeding overflowed its sized buffers: total_hits "
+            f"{seeds['total_hits']}, total_seeds {seeds['total_seeds']}")
     stats["seed_overflow"] = seeds["overflow"]
+    stats["total_hits"] = int(seeds["total_hits"])
+    stats["total_seeds"] = int(seeds["total_seeds"])
     _sync(device)
     stats["t_seed"] = round(time.time() - t_ph, 3)
     t_ph = time.time()
@@ -1079,7 +1095,8 @@ def overlap_pair_emit(state: dict, stream=None
 def overlap_block_pair(blk_a: ReadBlock, blk_b: ReadBlock,
                        cfg: OverlapConfig, self_block: bool,
                        mask_a=None, mask_b=None,
-                       hit_cap: int = 1 << 21, seed_cap: int = 1 << 17,
+                       hit_cap: int | None = None,
+                       seed_cap: int | None = None,
                        emit_mirrors: bool = True,
                        size_hints: dict | None = None, *, device
                        ) -> tuple[LasFile, LasFile, dict]:
@@ -1094,6 +1111,14 @@ def overlap_block_pair(blk_a: ReadBlock, blk_b: ReadBlock,
     las_b.  The device arrays a pass builds (uploads, the A-side index,
     the reverse-complement block, the trace pool) stay in the blocks'
     caches, so a second pass over the same block objects skips them.
+
+    hit_cap/seed_cap: the seeding buffers' caps.  None (the default)
+    sizes them from the count phase's exact totals, so no hit or seed is
+    ever cut off (a hit total above ops.seeding._SLICE_CAP raises
+    NotImplementedError).  An explicit cap reproduces damar_tpu's
+    buffers, which cut the seeding short when the totals pass them
+    (4 x seed_cap for the seeds): stats["seed_overflow"] is then true,
+    and run_overlap_plan refuses such a pair.
 
     size_hints: optional mutable dict carried across pairs by a sweep.
     Hit totals are similar between pairs of one dataset, so the previous

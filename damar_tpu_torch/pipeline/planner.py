@@ -219,8 +219,10 @@ def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
     of that block is marked done in the shared manifest (any host may
     perform it).  mask_names: interval tracks of the DB whose union
     soft-masks the seeding (daligner -m).  hit_cap/seed_cap: the seeding
-    buffer caps of every pair (overlap_pair_device's defaults when left
-    out; blocks of tens of Mbp need larger ones).
+    buffer caps of every pair; None (the default) sizes the buffers from
+    each pair's exact totals (overlap_block_pair).  A pair whose seeding
+    an explicit cap cut short raises RuntimeError, naming the pair and
+    its totals, before anything of it is written or marked done.
     """
     import time
     from damar_tpu_torch.core.blocks import block_from_db
@@ -240,8 +242,7 @@ def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
     stats = {"pairs": 0, "skipped": 0, "overlaps": 0}
     blocks = {}
     masks = {}
-    caps = {k: v for k, v in (("hit_cap", hit_cap), ("seed_cap", seed_cap))
-            if v is not None}
+    caps = dict(hit_cap=hit_cap, seed_cap=seed_cap)
 
     def get_block(i):
         if i not in blocks:
@@ -315,6 +316,13 @@ def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
     for tag, la, lb, st in overlap_pairs_pipelined(job_iter(), cfg,
                                                    device=device):
         i, j, name, out_a, out_b, t0 = tag
+        if st.get("seed_overflow"):
+            raise RuntimeError(
+                f"{name}: seeding cut short by its buffer caps (hit_cap "
+                f"{hit_cap}, seed_cap {seed_cap}): total_hits "
+                f"{st['total_hits']}, total_seeds {st['total_seeds']}; "
+                f"nothing of the pair was written (leave the caps out to "
+                f"size the buffers from the totals)")
         if i != j:
             lasmod.write_las(out_a, la)
             lasmod.write_las(out_b, lb)

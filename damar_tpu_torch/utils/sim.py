@@ -265,3 +265,58 @@ def band_batch(rng: np.random.Generator, S: int, track: bool, R: int = 100,
     vals = (D, a, b, vec(-70, 10), vec(0, 500), vec(0, 400),
             vec(-3, R + 5), vec(0, 2), *trk, vec(0, 2))
     return tuple(np.ascontiguousarray(x, dtype=np.int32) for x in vals)
+
+
+def kmer_hit_rate(genome: np.ndarray, contig: np.ndarray,
+                  k: int = 16) -> float:
+    """Identity oracle: fraction of the contig's exact k-mers present
+    in the truth genome (both strands); identity ~ hit ** (1/k)."""
+    cb = bytes(np.asarray(contig, dtype=np.uint8))
+    if len(cb) < k + 1:
+        return 0.0
+    g = np.asarray(genome, dtype=np.uint8)
+    gb = bytes(g)
+    rb = bytes((g[::-1] ^ 3).astype(np.uint8))
+    gset = {gb[i:i + k] for i in range(len(gb) - k + 1)} \
+        | {rb[i:i + k] for i in range(len(rb) - k + 1)}
+    return float(np.mean([cb[i:i + k] in gset
+                          for i in range(len(cb) - k + 1)]))
+
+
+def align_pairs_batch(rng: np.random.Generator, P: int, bands=(64, 96, 700),
+                      max_len: int = 1300, semiglobal: bool = True,
+                      err: float = 0.12) -> list:
+    """Random (template, cover, band) pairs for the pile aligner's fuzz
+    checks: templates of 0 to max_len codes; covers a mutated copy with
+    margins (longer), a mutated part (shorter: n - m negative, odd ones
+    among them), unrelated codes, or empty.  In global mode the cover
+    length stays within half a band of the template's, so the path's end
+    column lies inside the band."""
+    out = []
+    for _ in range(P):
+        band = int(rng.choice(bands))
+        m = int(rng.integers(0, max_len + 1))
+        a = rng.integers(0, 4, m).astype(np.uint8)
+        kind = int(rng.integers(0, 5))
+        if not semiglobal:
+            b = mutate(a, err, rng)
+            d = len(b) - m
+            lim = band // 2
+            if abs(d) > lim:
+                b = b[:m + lim] if d > 0 else np.concatenate(
+                    [b, rng.integers(0, 4, -d - lim).astype(np.uint8)])
+        elif kind == 0:                 # margins on both sides
+            lo = rng.integers(0, 4, int(rng.integers(0, 300)))
+            hi = rng.integers(0, 4, int(rng.integers(0, 300)))
+            b = np.concatenate([lo, mutate(a, err, rng), hi])
+        elif kind == 1:                 # a part: n - m < 0, often odd
+            cut = int(rng.integers(0, max(m // 2, 1))) * 2 + 1
+            b = mutate(a[:max(m - cut, 0)], err, rng)
+        elif kind == 2:
+            b = rng.integers(0, 4, int(rng.integers(0, max_len + 1)))
+        elif kind == 3:
+            b = np.zeros(0, np.uint8)
+        else:
+            b = mutate(a, err, rng)
+        out.append((a, np.asarray(b, np.uint8)[:max_len + 600], band))
+    return out

@@ -318,3 +318,38 @@ def test_retrace_rows_on_card_matches_cpu(dev):
     assert out[0][0] == out[1][0]
     for k in ("headers", "trace", "offsets"):
         assert np.array_equal(getattr(out[0][1], k), getattr(out[1][1], k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bands,semi", [((64, 96), True), ((700, 96), True),
+                                        ((200,), False), ((700,), False)])
+def test_band_align_kernel_matches_plain(dev, bands, semi):
+    """K4 on a ragged batch of mixed bands (cells a lane 8, 16 or 48),
+    both modes: ops, offsets and jstart equal band_align_plain's, and the
+    wrapper counts the launch."""
+    from damar_tpu_torch.ops import band_align as ba
+    from damar_tpu_torch.utils.sim import align_pairs_batch
+    rng = np.random.default_rng(21)
+    pairs = align_pairs_batch(rng, 200, bands=bands, semiglobal=semi)
+    n0 = ba.band_align.launches
+    got = ba.align_pairs(pairs, semi, device=dev)
+    assert ba.band_align.launches == n0 + 1
+    want = ba.align_pairs(pairs, semi, device="cpu")
+    for (g, gj), (w, wj) in zip(got, want):
+        assert np.array_equal(g, w) and gj == wj
+
+
+@pytest.mark.cuda
+def test_polish_on_card_matches_cpu(dev):
+    """correct_reads and polish_rounds through K4 on the card give the CPU
+    path's sequences."""
+    from damar_tpu_torch.pipeline import consensus as cs
+    from damar_tpu_torch.utils.sim import make_genome, mutate
+    rng = np.random.default_rng(22)
+    g = make_genome(6_000, seed=23)
+    reads = [mutate(g[s:s + 2500], 0.12, rng) for s in range(0, 3600, 300)]
+    lay = [(i, 0, s) for i, s in enumerate(range(0, 3600, 300))]
+    seq_of = lambda i, d: reads[i]  # noqa: E731
+    out = [cs.polish_rounds(g.copy(), lay, seq_of, rounds=2, device=d)
+           for d in (dev, "cpu")]
+    assert np.array_equal(out[0], out[1])

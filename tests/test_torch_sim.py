@@ -124,11 +124,13 @@ def test_check_las_reports_faults(tmp_path):
 PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
     "core.blocks", "core.config", "formats.dazzdb", "formats.fasta",
     "formats.las", "formats.oflags", "formats.tracks", "ops._cuda",
-    "ops.kmers", "ops.seeding", "ops.sort", "ops.wave_bp", "ops.wave_wide",
-    "ops.words", "parallel.distributed", "pipeline.masking",
-    "pipeline.overlap", "pipeline.planner", "pipeline.run",
-    "pipeline.scrub", "tools.compare_wave_bp", "tools.profile_window",
-    "utils.dust", "utils.sim")]
+    "ops.band_align", "ops.kmers", "ops.seeding", "ops.sort",
+    "ops.wave_bp", "ops.wave_wide", "ops.words", "parallel.distributed",
+    "pipeline.consensus", "pipeline.contigs", "pipeline.graph",
+    "pipeline.masking", "pipeline.overlap", "pipeline.planner",
+    "pipeline.poa", "pipeline.run", "pipeline.scrub", "pipeline.touring",
+    "tools.compare_wave_bp", "tools.profile_window", "utils.dust",
+    "utils.sim")]
 
 
 def test_port_imports_no_jax():
@@ -153,3 +155,28 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip() == "[]"
+
+
+def test_tour_and_pipeline_config_defaults_match():
+    """TourConfig is the reference's, field for field; PipelineConfig has
+    its phases' configs and the same block size and read cutoff."""
+    from dataclasses import asdict
+    from damar_tpu.core.config import PipelineConfig as RefPipe
+    from damar_tpu.core.config import TourConfig as RefTour
+    from damar_tpu_torch.core.config import PipelineConfig, TourConfig
+    assert asdict(TourConfig()) == asdict(RefTour())
+    ours, ref = asdict(PipelineConfig()), asdict(RefPipe())
+    assert set(ours) == set(ref)
+    for k in ("mask", "scrub", "tour", "block_mb", "min_read_len"):
+        assert ours[k] == ref[k], k
+    assert ours["overlap"] == {k: ref["overlap"][k] for k in ours["overlap"]}
+
+
+def test_kmer_hit_rate_matches():
+    from damar_tpu.utils.sim import kmer_hit_rate as ref_rate
+    from damar_tpu_torch.utils.sim import kmer_hit_rate, make_genome, mutate
+    rng = np.random.default_rng(4)
+    g = make_genome(5000, seed=5)
+    for contig in (mutate(g[100:3000], 0.02, rng),
+                   (g[::-1] ^ 3)[:2000].copy(), g[:10], g[:17]):
+        assert kmer_hit_rate(g, contig) == ref_rate(g, contig)
