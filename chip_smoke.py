@@ -20,7 +20,10 @@ Phases (any failure exits non-zero before the last line is printed):
      pile aligner (K4) on ragged batches of ~1,000 pairs (templates of
      0-1,300 codes, bands 64, 96 and 700, covers with margins, shorter
      ones with n - m negative and odd, unrelated and empty ones, both
-     modes) and on each of its cells-a-lane widths;
+     modes), on each of its classes alone (narrow pairs a warp each;
+     wide pairs on 2 to 6 warps, codes in shared memory; the widest band
+     with codes in global scratch) and on a polish window's mixed
+     launch;
   4. run the main path, overlap_block_pair on the large-50Mbp unit (2.5
      Mbp genome, 20x, mean 6 kb, 14% error, seeds 2024/2025, one block
      self-compared): a cold pass, which also builds what the block
@@ -119,9 +122,11 @@ Phases (any failure exits non-zero before the last line is printed):
         default: each phase's wall, the assemble wall split into
         correct_reads, the polish rounds and the finishing rounds (host
         timers around the port's functions), K4's launches, device time
-        (CUDA events around each launch) and bound; its first launch
-        (capped at CAP pairs) held against band_align_plain and timed
-        under torch.profiler; contigs summing
+        (CUDA events around each launch), bound, and per class (narrow,
+        wide) its pairs, DP cells and blocks; its first launch (capped at
+        CAP pairs) held against band_align_plain and timed under
+        torch.profiler, and its first launch with wide pairs held against
+        band_align_plain; contigs summing
         to >= 85% of the genome and the longest one's k-mer hit rate
         > 0.45;
      c. run_pipeline(polish=True) on the 12 kbp genome of the CPU tests,
@@ -158,9 +163,10 @@ from damar_tpu_torch.parallel.distributed import block_pair_matrix
 from damar_tpu_torch.pipeline import overlap as ov
 from damar_tpu_torch.pipeline.planner import run_overlap_plan
 from damar_tpu_torch.utils.sim import (align_pairs_batch, band_batch,
-                                       edge_units, make_genome,
-                                       sample_reads, unit_batch,
-                                       wide_trace_batch, write_sim_fasta)
+                                       edge_units, make_genome, mutate,
+                                       polish_window_pairs, sample_reads,
+                                       unit_batch, wide_trace_batch,
+                                       write_sim_fasta)
 
 GENOME, COVERAGE, MEAN_LEN, ERR, SEED = 2_500_000, 20.0, 6_000, 0.14, 2024
 HIT_CAP, SEED_CAP = 1 << 27, 1 << 21
@@ -236,10 +242,20 @@ TPU_KERNELS = ("bp_extend_kernel", "bp_trace_kernel", "wide_trace_kernel",
 K4 = "band_align_kernel"
 # K4's int32 operations per DP cell, estimated from csrc/band_align.cu:
 # the char load and compare 4, the three candidates and their minimum 6,
-# the prefix minimum and its clamps 5, the three flag tests and the flag
-# byte 10, loop and address work ~5; the SASS count (per cell of the row
-# loop) is taken where it is smaller
+# the prefix minimum and its clamps 5, the three traceback tests and the
+# 2-bit code 10, loop and address work ~5; the SASS count (per cell of
+# the row loop) is taken where it is smaller
 K4_OPS_PER_CELL = 30
+# DP cells a thread holds in K4's row loop (csrc/band_align.cu C)
+K4_CELLS = 8
+# K4's classes in the fuzz phase, (bands, longest template): narrow pairs
+# (bands <= 127, a warp each); wide pairs on 2, 3, 4, 5 and 6 warps with
+# widths on both sides of each warp edge, templates short enough that
+# their 2-bit codes sit in shared memory; the widest band with templates
+# whose codes go to global scratch (the staged walk)
+K4_FUZZ = (((64, 96, 127), 1300), ((128, 255), 500), ((256, 383), 500),
+           ((384, 500), 500), ((600, 639), 500), ((640, 696, 767), 500),
+           ((767,), 1300))
 
 # kernel name -> (wrapper whose `launches` counts it, module, launch fn,
 # plain torch version with the same contract, source, replaced TPU kernel)
@@ -351,16 +367,35 @@ def fuzz_checks(dev) -> dict:
     # K4: a ragged batch of ~1,000 pairs, templates of 0-1,300 codes,
     # bands 64, 96 and 700 mixed, covers with margins, shorter (n - m
     # negative, odd among them), unrelated and empty; global mode; then
-    # each cells-a-lane width (8, 16, 48) on its own
-    for semi, bands, P in ((True, (64, 96, 700), 1000),
-                           (False, (64, 96, 700), 300),
-                           (True, (64,), 300), (True, (200,), 300),
-                           (True, (700,), 100), (False, (96,), 300)):
+    # each class alone (K4_FUZZ: narrow; wide on 2 to 6 warps with the
+    # codes in shared memory; the widest band with codes in global
+    # scratch) in both modes, and a polish window's mixed launch
+    # the process's first K4 launch: one wide pair (band 128, m = 500)
+    # whose codes, 40,080 bytes, fit 48 KB but not 48 KB less the
+    # kernel's static shared memory, so this launch itself must raise the
+    # kernel's dynamic shared memory limit
+    r128 = np.random.default_rng(128)
+    tmpl = r128.integers(0, 4, 500).astype(np.uint8)
+    args = band_align.pack_pairs([(tmpl, mutate(tmpl, 0.12, r128), 128)],
+                                 dev)
+    e = max_abs_err(band_align.band_align_kernel(*args, True),
+                    band_align.band_align_plain(*args, True))
+    errs[K4] = max(errs[K4], e)
+    cases = [(True, (64, 96, 700), 1000, 1300),
+             (False, (64, 96, 700), 300, 1300)]
+    cases += [(semi, bands, 150, max_len) for bands, max_len in K4_FUZZ
+              for semi in (True, False)]
+    for semi, bands, P, max_len in cases:
         args = band_align.pack_pairs(
-            align_pairs_batch(rng, P, bands=bands, semiglobal=semi), dev)
+            align_pairs_batch(rng, P, bands=bands, semiglobal=semi,
+                              max_len=max_len), dev)
         e = max_abs_err(band_align.band_align_kernel(*args, semi),
                         band_align.band_align_plain(*args, semi))
         errs[K4] = max(errs[K4], e)
+    args = band_align.pack_pairs(polish_window_pairs(rng), dev)
+    e = max_abs_err(band_align.band_align_kernel(*args, True),
+                    band_align.band_align_plain(*args, True))
+    errs[K4] = max(errs[K4], e)
     torch.cuda.synchronize()
     return errs
 
@@ -385,8 +420,9 @@ def _row_loop(insns: list, labels: dict,
     """(instructions, global loads) of the smallest loop that holds a
     global load: the row loop, whose body is straight-line code over
     one or more 16-row groups (K1/K2) or rows (K3).  most_loads: the
-    loop with the most global loads instead (K4's row loop loads a
-    lane's cover chars, its walk one flag byte a step)."""
+    loop with the most global loads instead (K4's row loop loads the
+    template char and a thread's next cover char; its staged walk one
+    16-byte word a lane)."""
     ends = {}
     for addr, text in insns:
         op = text.split()
@@ -451,12 +487,13 @@ def sass_ops_per_row(lib_path: Path) -> dict:
         if kern is None:
             continue
         if kern == K4:
-            # the row loop: a lane's C cover chars and the template char
+            # the row loop: the template char and the thread's next cover
+            # char, over its K4_CELLS cells
             n_insn, n_ld = _row_loop(insns, labels, most_loads=True)
             if n_ld >= 2:
                 out[fn] = dict(kernel=kern, insns=n_insn, loads=n_ld,
-                               rows=1, lanes=n_ld - 1,
-                               per_row=n_insn / (n_ld - 1))
+                               rows=1, lanes=K4_CELLS,
+                               per_row=n_insn / K4_CELLS)
             continue
         n_insn, n_ld = _row_loop(insns, labels)
         rows = n_ld / LOADS_PER_ROW[kern]
@@ -471,8 +508,7 @@ def sass_ops_per_row(lib_path: Path) -> dict:
 
 def k4_ops_per_cell(sass: dict) -> float:
     """K4's operations per DP cell: the smaller of the estimate and the
-    largest SASS count per cell over its instances (8, 16 or 48 cells a
-    lane)."""
+    largest SASS count per cell of its row loop (8 cells a thread)."""
     counts = [v["per_row"] for v in sass.values() if v["kernel"] == K4]
     return min([K4_OPS_PER_CELL] + ([max(counts)] if counts else []))
 
@@ -506,11 +542,11 @@ def work(name: str, a, kw, out, sass: dict,
                         for t in ts if torch.is_tensor(t))
     if name == K4:
         # cells (m+1) x (2 band + 1) of each pair; bytes: the inputs, the
-        # flag scratch and the ops each once
+        # 2-bit codes and the ops each once
         m = (a[1][1:] - a[1][:-1]).to(torch.int64)
         cells = int(((m + 1) * (2 * a[4].to(torch.int64) + 1)).sum())
-        return cells, cells * k4_ops_per_cell(sass), nb(a[:5]) + cells + \
-            nb(out)
+        return cells, cells * k4_ops_per_cell(sass), nb(a[:5]) + \
+            cells // 4 + nb(out)
     if name == "bp_extend_kernel":
         bva = out[1].to(torch.int64)
         if full_rows is not None and a[8] < full_rows:
@@ -1741,16 +1777,21 @@ def assemble_stages(w: str, dev, card: str, genome_bp: int) -> dict:
 class FirstLaunch:
     """While a path runs: K4's launches, the DP cells of all of them (for
     the bound), each one's device time (a pair of CUDA events around the
-    kernel alone), and the arguments of the first one, capped at CAP
-    pairs; the launches go through unchanged.  (A torch.profiler window
-    over the whole assembly took ~140 s to read back on the H100's host,
-    more than the assembly's own phase 7.)"""
+    kernel alone), per class (narrow pairs a warp each, wide pairs a block
+    each) the pairs, cells and blocks from each launch's host plan, and
+    the arguments of the first launch and of the first launch with wide
+    pairs, each capped at CAP pairs; the launches go through unchanged.
+    (A torch.profiler window over the whole assembly took ~140 s to read
+    back on the H100's host, more than the assembly's own phase 7.)"""
 
     def __init__(self):
-        self.first, self.cells, self.calls = None, 0, 0
+        self.first = self.first_wide = None
+        self.cells = self.calls = 0
+        self.classes = {c: dict(pairs=0, cells=0, blocks=0)
+                        for c in ("narrow", "wide")}
 
     def __enter__(self):
-        self.orig = band_align.band_align_kernel
+        self.orig = band_align._launch
         self.events = []
         band_align.band_align.events = self.events
 
@@ -1758,18 +1799,26 @@ class FirstLaunch:
             n0 = band_align.band_align.launches
             out = self.orig(*a, **kw)
             if band_align.band_align.launches != n0:
-                m = (a[1][1:] - a[1][:-1]).to(torch.int64)
-                self.cells += int(((m + 1) * (2 * a[4].to(torch.int64)
-                                              + 1)).sum())
+                plan, semi = a[5], a[7]
+                self.cells += int(plan.cells.sum())
                 self.calls += 1
+                for c, sel, nb in (("narrow", ~plan.wide, plan.blocks[0]),
+                                   ("wide", plan.wide, plan.blocks[1])):
+                    k = self.classes[c]
+                    k["pairs"] += int(sel.sum())
+                    k["cells"] += int(plan.cells[sel].sum())
+                    k["blocks"] += nb
+                args = ((*a[:5], semi), {})
                 if self.first is None:
-                    self.first = capped(K4, a, kw)
+                    self.first = capped(K4, *args)
+                if self.first_wide is None and plan.n_wide:
+                    self.first_wide = capped(K4, *args)
             return out
-        band_align.band_align_kernel = spy
+        band_align._launch = spy
         return self
 
     def __exit__(self, *exc):
-        band_align.band_align_kernel = self.orig
+        band_align._launch = self.orig
         band_align.band_align.events = None
         return False
 
@@ -1852,7 +1901,7 @@ def assembly_phase(dev, card: str, sass: dict) -> dict:
         stats = assembly_stats(lens, len(genome))
         ph = rep["phases"]
         walls = {k: v["wall_s"] for k, v in ph.items()}
-        bms, by = bound(k4.cells * k4_ops_per_cell(sass), k4.cells)
+        bms, by = bound(k4.cells * k4_ops_per_cell(sass), k4.cells // 4)
         mean_k4 = k4_ms / max(launches[K4], 1)
         out = dict(genome_bp=len(genome), reads_bp=total_bp,
                    blocks=ph["ingest"]["blocks"], block_mb=block_mb,
@@ -1864,7 +1913,8 @@ def assembly_phase(dev, card: str, sass: dict) -> dict:
                    k4=dict(launches=launches[K4], device_ms=k4_ms,
                            mean_launch_ms=mean_k4, cells=k4.cells,
                            bound_ms=bms, bound_by=by,
-                           bound_share=bms / k4_ms if k4_ms else None))
+                           bound_share=bms / k4_ms if k4_ms else None,
+                           classes=k4.classes))
         log(f"phase 10b, the whole pipeline with polish: {out} on {card}")
         missing = [k for k in MAIN_PATH + (K4,) if launches[k] <= 0]
         if missing:
@@ -1876,7 +1926,8 @@ def assembly_phase(dev, card: str, sass: dict) -> dict:
         if hit <= 0.45:
             raise SystemExit(f"chip_smoke: phase 10b: the longest contig's "
                              f"k-mer hit rate {hit:.4f} <= 0.45")
-        return dict(out, launches=launches, first=k4.first)
+        return dict(out, launches=launches, first=k4.first,
+                    first_wide=k4.first_wide)
     finally:
         shutil.rmtree(w, ignore_errors=True)
 
@@ -1936,9 +1987,19 @@ def k4_row(asm: dict, errs: dict, sass: dict, card: str) -> tuple:
     launches, device time and bound over the assembly.  Pops the first
     launch, K4's numbers and the launches from asm; returns (row, each
     kernel's launches in the assembly)."""
-    first = asm.pop("first")
-    if first is None:
-        raise SystemExit("chip_smoke: no K4 launch was kept")
+    first, first_wide = asm.pop("first"), asm.pop("first_wide")
+    if first is None or first_wide is None:
+        raise SystemExit("chip_smoke: no K4 launch (or none with wide "
+                         "pairs) was kept")
+    # the first launch with wide pairs (a polish window), held against
+    # plain; then the first launch (correct_reads: narrow pairs), held
+    # and timed
+    a, k = first_wide
+    e = max_abs_err(band_align.band_align_kernel(*a, **k),
+                    band_align.band_align_plain(*a, **k))
+    errs[K4] = max(errs[K4], e)
+    log(f"{K4}, first assembly launch with wide pairs ({a[4].shape[0]} "
+        f"pairs, bands {sorted(set(a[4].tolist()))}): max_abs_err {e}")
     a, k = first
     out = band_align.band_align_kernel(*a, **k)
     e = max_abs_err(out, band_align.band_align_plain(*a, **k))
@@ -1966,12 +2027,13 @@ def k4_row(asm: dict, errs: dict, sass: dict, card: str) -> tuple:
         bound_share=(round(k4["bound_share"], 4) if k4["bound_share"]
                      else None),
         pass_rows=k4["cells"], sweep_launches=0, stage_launches=0,
-        assembly_launches=launches[K4],
+        assembly_launches=launches[K4], assembly_classes=k4["classes"],
         note="launches, pass_ms, pass_bound_ms and bound_share are the "
              "whole assembly of phase 10b (pass_rows: its DP cells; "
-             "pass_ms by CUDA events around each launch); ms, plain_ms, "
-             "bound_ms its first launch there, capped (ms under "
-             "torch.profiler)")
+             "pass_ms by CUDA events around each launch; "
+             "assembly_classes: pairs, DP cells and blocks per class); "
+             "ms, plain_ms, bound_ms its first launch there, capped (ms "
+             "under torch.profiler)")
     return row, launches
 
 

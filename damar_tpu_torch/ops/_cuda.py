@@ -45,7 +45,8 @@ SIGNATURES = {
                        P, P, P, P,
                        P, P, P, P, P, P, P,
                        I, I, I, I, I, I, I, P],
-    "band_align_launch": [P, P, P, P, P, I, I, I, P, P, P, P, P, P, P],
+    "band_align_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I,
+                          P, P, P, P, P],
 }
 
 _lock = threading.Lock()

@@ -14,13 +14,18 @@ preference and the first-min start column of a semiglobal last row.  In
 global mode the C gives up (and the reference falls back to numpy) when
 the path's end column lies outside the band; here that raises.
 
-Kernel: band_align_kernel in damar_tpu_torch/csrc/band_align.cu, one warp
-a pair (the file's header says what bounds it).  Beside it the plain
-torch version, band_align_plain, which batches the pairs over the rows
-with the same prefix-minimum identity and walks all pairs' flags
-together; the wrapper band_align takes it only for CPU tensors.
+Kernel: band_align_kernel in damar_tpu_torch/csrc/band_align.cu, a warp
+for a narrow pair and a block of warps for a wide one, in one launch
+(the file's header says what bounds it); plan_launch sorts the pairs
+into the two classes on the host.  Beside it the plain torch version,
+band_align_plain, which batches the pairs over the rows with the same
+prefix-minimum identity and walks all pairs' flags together; the
+wrapper band_align takes it only for CPU tensors.  align_pairs, the
+pipeline's entry, makes one sync a call on the card (align_packed).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,8 +35,14 @@ from damar_tpu_torch.ops import _cuda
 # the plain version's sentinel in place of the C's BA_INF (0x3FFFFFFF)
 # and its "no candidate" value (see _plain_chunk)
 PLAIN_INF, PLAIN_BIG = (1 << 29) - 1, (1 << 29) + (1 << 12)
-# the largest band the kernel takes (48 cells a lane, 32 lanes)
-MAX_BAND = (48 * 32 - 1) // 2
+# the kernel's groups (csrc/band_align.cu): 8 cells a thread, 256 a warp;
+# a narrow pair (width <= 256) on a warp, six to a block; a wide pair on
+# a block of up to six warps, so the largest band is 767
+WARP_CELLS, MAX_WARPS, NARROW_PER_BLOCK = 256, 6, 6
+MAX_BAND = (MAX_WARPS * WARP_CELLS - 1) // 2
+# the most dynamic shared memory a block takes for a wide pair's codes
+# (of the 227 KB a block can have, less the kernel's 12.5 KB static)
+SMEM_CAP = 212 * 1024
 # cells (rows x band columns x pairs) of one chunk of the plain version
 PLAIN_CHUNK_CELLS = 1 << 23
 
@@ -140,15 +151,19 @@ def _plain_chunk(a, a_off, b, b_off, band, semiglobal: bool):
     ends = {}
     for p_, mm in enumerate(m.tolist()):
         ends.setdefault(mm, []).append(p_)
-    for i in range(1, M + 1):
-        diag = buf[:, 1:W + 1] + A[i - 1]
-        upu = buf[:, 2:] + U2[i - 1]
+    # views made once: the row (written in place), its left neighbours
+    # and up terms, and each row's addends and flag bytes
+    row, left, upr = buf[:, 1:W + 1], buf[:, :W], buf[:, 2:]
+    for i, (a_i, u_i, f_i, fl_i) in enumerate(zip(
+            A.unbind(0), U2.unbind(0), FLOOR.unbind(0), FL[1:].unbind(0)),
+            1):
+        diag = torch.add(row, a_i)
+        upu = torch.add(upr, u_i)
         cm = torch.cummin(torch.minimum(diag, upu), 1).values
-        row = torch.maximum(torch.minimum(cm, infk, out=cm), FLOOR[i - 1])
-        buf[:, 1:W + 1] = row
-        f = torch.add((diag == row).view(u8), (upu == row).view(u8),
-                      alpha=2)
-        torch.add(f, (buf[:, :W] == row).view(u8), alpha=4, out=FL[i])
+        torch.maximum(torch.minimum(cm, infk, out=cm), f_i, out=row)
+        f = torch.add(torch.eq(diag, row).view(u8),
+                      torch.eq(upu, row).view(u8), alpha=2)
+        torch.add(f, torch.eq(left, row).view(u8), alpha=4, out=fl_i)
         if i in ends:
             sel = torch.tensor(ends[i], device=dev)
             last[sel] = row[sel]
@@ -173,13 +188,15 @@ def _plain_chunk(a, a_off, b, b_off, band, semiglobal: bool):
                 + torch.tensor(_FLAG_DK, device=dev))
     cur = (m * P + torch.arange(P, device=dev)) * W + kstart
     S = int((m + n).max()) + 1
-    O = torch.full((P, S), _TERMINAL, dtype=torch.uint8, device=dev)
+    cols = []
     for t in range(S):
         o = torch.take(mv, cur)
-        O[:, t] = o
-        cur += torch.take(step, o.to(torch.int64))
+        cols.append(o)
+        cur.add_(torch.take(step, o.to(torch.int64)))
         if t % 64 == 63 and bool((o == _TERMINAL).all()):
             break
+    O = torch.full((P, S), _TERMINAL, dtype=torch.uint8, device=dev)
+    O[:, :len(cols)] = torch.stack(cols, 1)
     if bool((O == _OUT_OF_BAND).any()):
         raise ValueError("band_align: the traceback left the band (global "
                          "mode)")
@@ -257,57 +274,151 @@ def _gather(x, x_off: list, sel: list):
 
 
 
-def band_align_kernel(a, a_off, b, b_off, band, semiglobal: bool = True):
-    """Launch band_align_kernel on the current CUDA stream over all P
-    pairs: returns (ops uint8, offs int64 [P+1], jstart int32 [P]) on the
-    card.  Scratch: (m+1) x (2*band+1) flag bytes and m+n op bytes a
-    pair."""
-    _check(a, a_off, b, b_off, band)
+class Plan(NamedTuple):
+    """One band_align_kernel launch, planned on the host from the pairs'
+    lengths and bands (numpy int64 arrays [P])."""
+    m: np.ndarray
+    n: np.ndarray
+    band: np.ndarray
+    order: np.ndarray      # int32 [P]: the narrow pairs, then the wide
+    n_narrow: int
+    per_block: int         # narrow pairs a block
+    n_wide: int
+    c_off: np.ndarray      # int64 [P]: codes in the global scratch, -1
+    code_bytes: int        # in shared memory; the scratch's size
+    smem: int              # dynamic shared memory a block (bytes)
+    o_end: np.ndarray      # int64 [P]: the end of each pair's op region
+    ops_bytes: int
+    cells: np.ndarray      # int64 [P]: (m+1) x (2 band + 1)
+    wide: np.ndarray       # bool [P]
+
+    @property
+    def blocks(self) -> tuple[int, int]:
+        """(narrow blocks, wide blocks) of the launch."""
+        return -(-self.n_narrow // self.per_block), self.n_wide
+
+
+def plan_launch(m, n, band, sms: int = 132) -> Plan:
+    """The launch of band_align_kernel over pairs with these template and
+    cover lengths and bands (see csrc/band_align.cu): each pair's class
+    (narrow: width <= WARP_CELLS, a warp; wide: a block of
+    ceil(width / WARP_CELLS) warps), the order (each class longest
+    first), the narrow pairs a block (NARROW_PER_BLOCK, or fewer where
+    the launch would leave some of the card's `sms` SMs idle, so that
+    the few pairs of a polish window each have an SM), where each pair's
+    2-bit codes go (a wide pair's into the block's dynamic shared memory
+    when they fit SMEM_CAP, sized to the call's largest such pair; the
+    rest into 16-byte aligned global scratch) and the op regions.
+    Raises on a band above MAX_BAND."""
+    m, n, band = (np.asarray(x, np.int64) for x in (m, n, band))
+    P = len(band)
+    if P and int(band.min()) < 0:
+        raise ValueError("band_align_kernel: negative band")
+    if P and int(band.max()) > MAX_BAND:
+        raise ValueError(f"band_align_kernel: band {int(band.max())} > "
+                         f"{MAX_BAND}")
+    width = 2 * band + 1
+    wide = width > WARP_CELLS
+    cbytes = (m + 1) * (16 * -(-width // 64))
+    in_smem = wide & (cbytes <= SMEM_CAP)
+    glob = np.where(in_smem, 0, cbytes)
+    c_off = np.cumsum(glob) - glob
+    c_off[in_smem] = -1
+    cells = (m + 1) * width
+    key = np.lexsort((-cells, wide))          # narrow first, longest first
+    o_end = np.cumsum(m + n)
+    n_narrow, n_wide = int((~wide).sum()), int(wide.sum())
+    per_block = min(NARROW_PER_BLOCK,
+                    max(1, -(-n_narrow // max(1, sms - n_wide))))
+    return Plan(m, n, band, key.astype(np.int32), n_narrow, per_block,
+                n_wide, c_off, int(glob.sum()),
+                int(cbytes[in_smem].max()) if in_smem.any() else 0,
+                o_end, int(o_end[-1]) if P else 0, cells, wide)
+
+
+def _sms(device) -> int:
+    """The card's SM count."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _layout(parts: list) -> tuple[list, int]:
+    """Byte offsets of the arrays `parts` packed one after another, each
+    at a 16-byte boundary, and the total size."""
+    offs, pos = [], 0
+    for x in parts:
+        offs.append(pos)
+        pos += -(-x.nbytes // 16) * 16
+    return offs, max(pos, 16)
+
+
+def _launch(a, a_off, b, b_off, band, plan: Plan, meta, semiglobal: bool):
+    """One band_align_kernel launch on the current stream of the tensors'
+    device: a, b uint8 and a_off, b_off int64 [P+1], band int32 [P] on
+    the card, `meta` the byte tensor on the card holding plan.order,
+    plan.c_off and plan.o_end (at the offsets _layout gives them).
+    Returns the result bytes on the card: the op regions (plan.ops_bytes,
+    then up to 16-byte alignment), lengths int32 [P], jstart int32 [P]."""
     lib = _cuda.lib()
     dev = a.device
-    P = band.shape[0]
-    m, n = _lengths(a_off, b_off)
-    band32 = band.to(torch.int32).contiguous()
-    max_band = int(band32.max()) if P else 0
-    if max_band > MAX_BAND:
-        raise ValueError(f"band_align_kernel: band {max_band} > {MAX_BAND}")
-    fsz = (m + 1) * (2 * band32.to(torch.int64) + 1)
-    f_off = torch.cumsum(fsz, 0) - fsz
-    o_end = torch.cumsum(m + n, 0)
-    nf = int(fsz.sum()) if P else 0
-    no = int(o_end[-1]) if P else 0
-    flags = torch.empty(max(nf, 1), dtype=torch.uint8, device=dev)
-    ops = torch.empty(max(no, 1), dtype=torch.uint8, device=dev)
-    lens = torch.empty(P, dtype=torch.int32, device=dev)
-    jstart = torch.empty(P, dtype=torch.int32, device=dev)
-    c = lambda x: x.contiguous()  # noqa: E731
-    a_, b_ = c(a), c(b)
-    ao, bo = c(a_off.to(torch.int64)), c(b_off.to(torch.int64))
+    P = len(plan.band)
+    (o_order, o_coff, o_oend), _ = _layout(
+        [plan.order, plan.c_off, plan.o_end])
+    nops, size = _result_layout(P, plan.ops_bytes)
+    res = torch.empty(size, dtype=torch.uint8, device=dev)
+    codes = torch.empty(max(plan.code_bytes, 16), dtype=torch.uint8,
+                        device=dev)
+    base = meta.data_ptr()
     timed = band_align.events is not None and P > 0
     if timed:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
     err = lib.band_align_launch(
-        a_.data_ptr(), ao.data_ptr(), b_.data_ptr(), bo.data_ptr(),
-        band32.data_ptr(), P, max_band, int(bool(semiglobal)),
-        flags.data_ptr(), f_off.data_ptr(), ops.data_ptr(),
-        o_end.data_ptr(), lens.data_ptr(), jstart.data_ptr(),
-        _cuda.stream_ptr(a_))
+        a.data_ptr(), a_off.data_ptr(), b.data_ptr(), b_off.data_ptr(),
+        band.data_ptr(), base + o_order, base + o_coff, base + o_oend,
+        plan.n_narrow, plan.per_block, plan.n_wide, int(bool(semiglobal)),
+        plan.smem, codes.data_ptr(), res.data_ptr(), res.data_ptr() + nops,
+        res.data_ptr() + nops + 4 * P, _cuda.stream_ptr(a))
     _cuda.check(err, "band_align_kernel")
     _cuda.count_launch(band_align, P)
     if timed:
         ev[1].record()
         band_align.events.append(ev)
-    lens64 = lens.to(torch.int64)
-    if P and bool((lens64 < 0).any()):
-        raise ValueError("band_align_kernel: a global path leaves the band")
-    offs = torch.zeros(P + 1, dtype=torch.int64, device=dev)
-    offs[1:] = torch.cumsum(lens64, 0)
-    total = int(offs[-1])
-    src = (torch.repeat_interleave(o_end - lens64 - offs[:-1], lens64,
-                                   output_size=total)
-           + torch.arange(total, device=dev))
-    return ops[src], offs, jstart
+    return res
+
+
+def _result_layout(P: int, ops_bytes: int) -> tuple[int, int]:
+    """(where the lengths start, total bytes) of _launch's result bytes:
+    the op regions, lengths int32 [P] at a 16-byte boundary, jstart int32
+    [P] after them."""
+    nops = -(-ops_bytes // 16) * 16
+    return nops, nops + 8 * P + 16
+
+
+def _results(res, P: int, ops_bytes: int):
+    """(op regions, lengths, jstart) views of _launch's result bytes
+    (copied to the host)."""
+    nops, _ = _result_layout(P, ops_bytes)
+    return (res[:ops_bytes], res[nops:nops + 4 * P].view(torch.int32),
+            res[nops + 4 * P:nops + 8 * P].view(torch.int32))
+
+
+def band_align_kernel(a, a_off, b, b_off, band, semiglobal: bool = True):
+    """Launch band_align_kernel on the card over all P pairs: returns
+    (ops uint8, offs int64 [P+1], jstart int32 [P]) on the card.  Reads
+    the pairs back to the host and goes through align_packed, the
+    pipeline's own launch, so the two share their packing and unpacking;
+    align_pairs starts from its host arrays instead."""
+    _check(a, a_off, b, b_off, band)
+    dev = a.device
+    host = tuple(np.ascontiguousarray(x.cpu().numpy()) for x in (
+        a, a_off.to(torch.int64), b, b_off.to(torch.int64),
+        band.to(torch.int32)))
+    ops, o_end, lens, jst = align_packed(host, semiglobal, dev)
+    lens = lens.astype(np.int64)
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    src = np.repeat(o_end - lens - offs[:-1], lens) + np.arange(offs[-1])
+    return tuple(torch.from_numpy(x).to(dev) for x in (ops[src], offs, jst))
 
 
 def band_align(a, a_off, b, b_off, band, semiglobal: bool = True):
@@ -332,9 +443,34 @@ band_align.events = None
 def pack_pairs(pairs: list, device) -> tuple:
     """[(template, cover, band)] numpy pairs -> the tensors of one
     band_align call on `device`: (a, a_off, b, b_off, band)."""
+    return tuple(torch.from_numpy(x).to(torch.device(device))
+                 for x in _host_pairs(pairs))
+
+
+def align_pairs(pairs: list, semiglobal: bool = True, *, device
+                ) -> list[tuple[np.ndarray, int]]:
+    """[(template, cover, band)] numpy pairs -> [(ops, jstart)] through one
+    band_align call on `device`.  On the card (align_packed) the launch
+    is planned from the host arrays, the inputs go up in one copy and the
+    results come back in one: one sync a call."""
+    if not pairs:
+        return []
+    if torch.device(device).type == "cuda":
+        ops, o_end, lens, jst = align_packed(_host_pairs(pairs), semiglobal,
+                                             torch.device(device))
+        return [(ops[o_end[i] - lens[i]:o_end[i]], int(jst[i]))
+                for i in range(len(pairs))]
+    ops, o_off, jst = band_align(*pack_pairs(pairs, device), semiglobal)
+    ops, o_off, jst = ops.cpu().numpy(), o_off.cpu().numpy(), \
+        jst.cpu().numpy()
+    return [(ops[o_off[i]:o_off[i + 1]], int(jst[i]))
+            for i in range(len(pairs))]
+
+
+def _host_pairs(pairs: list) -> tuple:
+    """[(template, cover, band)] -> numpy (a, a_off, b, b_off, band)."""
     def cat(xs):
-        return (np.concatenate(xs).astype(np.uint8, copy=False)
-                if xs else np.zeros(0, np.uint8))
+        return np.concatenate(xs) if xs else np.zeros(0, np.uint8)
 
     def offs(xs):
         o = np.zeros(len(xs) + 1, np.int64)
@@ -342,21 +478,36 @@ def pack_pairs(pairs: list, device) -> tuple:
         return o
     ts = [np.asarray(p[0], np.uint8) for p in pairs]
     cs = [np.asarray(p[1], np.uint8) for p in pairs]
-    dev = torch.device(device)
-    return tuple(torch.from_numpy(x).to(dev) for x in (
-        cat(ts), offs(ts), cat(cs), offs(cs),
-        np.array([p[2] for p in pairs], np.int32)))
+    return (cat(ts), offs(ts), cat(cs), offs(cs),
+            np.array([p[2] for p in pairs], np.int32))
 
 
-def align_pairs(pairs: list, semiglobal: bool = True, *, device
-                ) -> list[tuple[np.ndarray, int]]:
-    """[(template, cover, band)] numpy pairs -> [(ops, jstart)] through one
-    band_align call on `device` (the pile's host arrays go up, the ops
-    come back)."""
-    if not pairs:
-        return []
-    ops, o_off, jst = band_align(*pack_pairs(pairs, device), semiglobal)
-    ops, o_off, jst = ops.cpu().numpy(), o_off.cpu().numpy(), \
-        jst.cpu().numpy()
-    return [(ops[o_off[i]:o_off[i + 1]], int(jst[i]))
-            for i in range(len(pairs))]
+def align_packed(host: tuple, semiglobal: bool, device) -> tuple:
+    """One band_align_kernel launch over the numpy pairs `host` (a, a_off,
+    b, b_off, band as _host_pairs gives them): the arrays and the plan go
+    up in one pinned buffer and one copy, the op regions, lengths and
+    jstart come back in one copy (the call's one sync).  Returns numpy
+    (ops, o_end, lens, jstart): pair p's ops are ops[o_end[p] - lens[p]:
+    o_end[p]].  Raises on a global path that leaves the band."""
+    a, a_off, b, b_off, band = host
+    P = len(band)
+    plan = plan_launch(np.diff(a_off), np.diff(b_off), band, _sms(device))
+    parts = [plan.order, plan.c_off, plan.o_end, a_off, b_off, band, a, b]
+    offs, size = _layout(parts)
+    pinned = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+    buf = pinned.numpy()
+    for x, o in zip(parts, offs):
+        buf[o:o + x.nbytes] = x.view(np.uint8)
+    up = pinned.to(device, non_blocking=True)
+    view = lambda i, dt: up[offs[i]:offs[i] + parts[i].nbytes].view(dt)  # noqa: E731
+    res = _launch(view(6, torch.uint8), view(3, torch.int64),
+                  view(7, torch.uint8), view(4, torch.int64),
+                  view(5, torch.int32), plan, up, semiglobal)
+    back = torch.empty(res.numel(), dtype=torch.uint8, pin_memory=True)
+    back.copy_(res, non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()
+    ops, lens, jst = (x.numpy().copy()
+                      for x in _results(back, P, plan.ops_bytes))
+    if (lens < 0).any():
+        raise ValueError("band_align_kernel: a global path leaves the band")
+    return ops, plan.o_end, lens, jst

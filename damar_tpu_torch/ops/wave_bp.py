@@ -30,8 +30,8 @@ from __future__ import annotations
 import torch
 
 from damar_tpu_torch.ops import _cuda
-from damar_tpu_torch.ops.words import (M32, char_at, gather_packed_words,
-                                       pack_bases)
+from damar_tpu_torch.ops.words import (M32, gather_packed_words, pack_bases,
+                                       u32)
 
 BW = 32
 CTR = 16
@@ -53,46 +53,22 @@ def _popcount(x):
 
 
 def _row_step(VP, VN, Db, Dc, Eq):
-    """One DP row (ops.wave_bp._row_step), uint32 wraparound by masks."""
+    """One DP row (ops.wave_bp._row_step), uint32 wraparound by masks: a
+    value's bits above 31 are dropped where it meets VP, VN, X or Z (all
+    below 2^32) in an AND, so only the words that stand alone are
+    masked.  Dc None: no centre column (the trace pass)."""
     X = Eq | (VN >> 1)
-    seed = ((X << 1) & M32) & VP
-    G0 = X | (VP & (seed | (((seed + VP) & M32) ^ VP)))
+    seed = (X << 1) & VP
+    G0 = X | (VP & (seed | ((seed + VP) ^ VP)))
     g = G0 ^ M32
-    gp = (g << 1) & M32
-    d = g ^ gp
-    nd = d ^ M32
+    gp = g << 1
+    nd = (g ^ gp) ^ M32
     Z = (VP | VN) ^ M32
     VPn = (VP & nd) | (Z & g & (gp ^ M32))
     VNn = (VN & nd) | (Z & gp & G0)
     Dbn = Db + 1 + (VP & 1) - (VN & 1)
-    Dcn = Dc + 1 - ((G0 >> CTR) & 1)
+    Dcn = None if Dc is None else Dc + 1 - ((G0 >> CTR) & 1)
     return VPn & NOT1, (VNn & NOT1) | (G0 & 1), Dbn, Dcn
-
-
-def _eq_bits(PH, PL, PV, x):
-    return ((PH ^ (((x >> 1) - 1) & M32)) & (PL ^ (((x & 1) - 1) & M32))
-            & PV)
-
-
-def _shift_planes(PH, PL, PV, nb, nvalid):
-    return ((PH >> 1) | (((nb >> 1) & 1) << (BW - 1)),
-            (PL >> 1) | ((nb & 1) << (BW - 1)),
-            (PV >> 1) | (nvalid.to(torch.int64) << (BW - 1)))
-
-
-def _init_planes(tile, v0b, blim):
-    """Peq planes from the first BW chars of a word window (bit j = char
-    at v-index v0b + j, valid iff 0 <= v0b + j < blim)."""
-    PH = torch.zeros_like(v0b)
-    PL = torch.zeros_like(v0b)
-    PV = torch.zeros_like(v0b)
-    for j in range(BW):
-        c = char_at(tile, j)
-        p = v0b + j
-        PH |= ((c >> 1) & 1) << j
-        PL |= (c & 1) << j
-        PV |= ((p >= 0) & (p < blim)).to(torch.int64) << j
-    return PH, PL, PV
 
 
 def _band_scan(VP, VN, Db, vbb_t, blim, extra_valid, diff_cost,
@@ -156,33 +132,59 @@ def _recenter(VP, VN, Db, d):
     return VPn | 1, VNn & NOT1, D0 - 1, Dc
 
 
+def _eq_rows(a_tile, b_tile, v0b, blim, rows: int):
+    """The Eq words of rows 0..rows-1 of a chunk, [S, rows]: row r's bit j
+    is set iff the b char at v-index v0b + r + j (valid iff inside [0,
+    blim)) equals a char r: the kernels' Peq planes of the b window,
+    shifted one char a row and masked by the a char, for all rows at
+    once."""
+    S = a_tile.shape[0]
+    k = torch.arange(16, device=a_tile.device, dtype=torch.int64)
+
+    def chars(tile, n):
+        return ((u32(tile)[:, :, None] >> (2 * k)) & 3).reshape(S, -1)[:, :n]
+    ach = chars(a_tile, rows)
+    bch = chars(b_tile, rows + BW)
+    p = v0b[:, None] + torch.arange(rows + BW, device=a_tile.device)
+    bch = torch.where((p >= 0) & (p < blim[:, None]), bch, 4)
+    win = bch.unfold(1, BW, 1)[:, :rows]               # [S, rows, BW]
+    return ((win == ach[:, :, None]).to(torch.int64)
+            << torch.arange(BW, device=a_tile.device)).sum(-1)
+
+
 def _ext_chunk(a_words, b_words, st, ao, bo, alim, blim, rv, rtot: int,
                R: int, diff_cost: int, xdrop: int):
     """One R-row chunk for active seeds (the body of _ext_chunk_kernel
     plus its wrapper's window gathers).  Returns the new state and the
-    still-active mask."""
+    still-active mask.  Only the rows' recurrence runs row by row; the
+    Eq words come before it (_eq_rows) and the score tracking after it,
+    over all rows at once: the best score is a running maximum whose
+    first row reaching its last value is the last improving row, and a
+    seed dies where a valid row's score falls below the running maximum
+    through it by more than xdrop + diff_cost."""
     VP, VN, Db, Dc, vbb, bs, bva, bvb = st
-    n = VP.shape[0]
     a_tile = gather_packed_words(a_words, ao,
                                  torch.full_like(ao, rtot), R, rv)
     b_tile = gather_packed_words(b_words, bo, vbb - 1, R + BW, rv)
-    PH, PL, PV = _init_planes(b_tile, vbb - 1, blim)
-    died = torch.zeros(n, dtype=torch.bool, device=VP.device)
+    Eq = _eq_rows(a_tile, b_tile, vbb - 1, blim, R)
+    Dcs = torch.empty_like(Eq)
     for r in range(R):
-        x = char_at(a_tile, r)
-        VP, VN, Db, Dc = _row_step(VP, VN, Db, Dc, _eq_bits(PH, PL, PV, x))
-        t = rtot + r + 1
-        vc = vbb + r + CTR
-        sc = t + vc - diff_cost * Dc
-        ok = (t <= alim) & (vc >= 0) & (vc <= blim)
-        improve = ok & (sc > bs)
-        bs = torch.where(improve, sc, bs)
-        bva = torch.where(improve, t, bva)
-        bvb = torch.where(improve, vc, bvb)
-        died |= ok & (sc < bs - (xdrop + diff_cost))
-        nbp = vbb + r + BW - 1
-        PH, PL, PV = _shift_planes(PH, PL, PV, char_at(b_tile, r + BW),
-                                   (nbp >= 0) & (nbp < blim))
+        VP, VN, Db, Dc = _row_step(VP, VN, Db, Dc, Eq[:, r])
+        Dcs[:, r] = Dc
+    rr = torch.arange(R, device=VP.device)
+    t = rtot + rr[None, :] + 1                        # [1, R]
+    vc = vbb[:, None] + rr[None, :] + CTR             # [S, R]
+    sc = t + vc - diff_cost * Dcs
+    ok = (t <= alim[:, None]) & (vc >= 0) & (vc <= blim[:, None])
+    run = torch.cummax(torch.cat([bs[:, None], torch.where(
+        ok, sc, NEG_I * 4)], 1), 1).values
+    died = (ok & (sc < run[:, 1:] - (xdrop + diff_cost))).any(1)
+    top = run[:, -1]
+    improved = top > bs
+    r_top = torch.argmax((ok & (sc == top[:, None])).to(torch.int8), 1)
+    bs = top
+    bva = torch.where(improved, rtot + r_top + 1, bva)
+    bvb = torch.where(improved, vbb + r_top + CTR, bvb)
     t = rtot + R
     vbb_t = vbb + R - 1
     smax, jbest, jmin, _, _ = _band_scan(VP, VN, Db, vbb_t, blim,
@@ -262,22 +264,14 @@ def trace_bp_plain(a_words, b_words, astart, bstart, abpos, bbpos, alim,
         a_tile = gather_packed_words(a_words, ao[idx], dn, tspace, False)
         b_tile = gather_packed_words(b_words, bo[idx], vb0 - 1,
                                      tspace + BW, False)
-        PH, PL, PV = _init_planes(b_tile, vb0 - 1, bl)
-        for r in range(int(seg_rows.max())):
+        rows = int(seg_rows.max())
+        Eq = _eq_rows(a_tile, b_tile, vb0 - 1, bl, rows)
+        for r in range(rows):
             go = r < seg_rows
-            x = char_at(a_tile, r)
-            VPn, VNn, Dbn, _ = _row_step(vp, vn, db, db,
-                                         _eq_bits(PH, PL, PV, x))
-            nbp = vb0 + r + BW - 1
-            PHn, PLn, PVn = _shift_planes(PH, PL, PV,
-                                          char_at(b_tile, r + BW),
-                                          (nbp >= 0) & (nbp < bl))
+            VPn, VNn, Dbn, _ = _row_step(vp, vn, db, None, Eq[:, r])
             vp = torch.where(go, VPn, vp)
             vn = torch.where(go, VNn, vn)
             db = torch.where(go, Dbn, db)
-            PH = torch.where(go, PHn, PH)
-            PL = torch.where(go, PLn, PL)
-            PV = torch.where(go, PVn, PV)
         va = dn + seg_rows
         at_end = va == al
         vbb_end = vb0 + seg_rows - 1

@@ -92,7 +92,10 @@ def dp_rows_plain(D, a_chars, b_tile, vb_base, p_base, blim, rows_limit,
         sub = torch.where(diag_valid, (bcmp != x).to(torch.int64), INF_I)
         Dl = torch.cat([Ds[:, 1:], torch.full_like(Ds[:, :1], INF_I)],
                        dim=1)
-        u = prefix_min(torch.minimum(Ds + sub, Dl + 1) - lane)
+        # prefix_min's closed form, equal to it on DP rows
+        # (tests/test_torch_wave_wide.py), in one op
+        u = torch.cummin(torch.minimum(Ds + sub, Dl + 1) - lane,
+                         1).values.clamp_(max=INF_I)
         Dn = torch.where(lane_valid, u + lane, INF_I)
         Ds = torch.where(row_active, Dn, Ds)
         if track_best:

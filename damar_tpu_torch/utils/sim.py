@@ -320,3 +320,22 @@ def align_pairs_batch(rng: np.random.Generator, P: int, bands=(64, 96, 700),
             b = mutate(a, err, rng)
         out.append((a, np.asarray(b, np.uint8)[:max_len + 600], band))
     return out
+
+
+def polish_window_pairs(rng: np.random.Generator) -> list:
+    """A polish window's pile-aligner pairs, as consensus.polish_contig
+    makes them: a 500-code template, 21 covers of it at band 96, and 3
+    first covers (on template slices, with margins of 200-600 codes) at
+    bands 216-615."""
+    tmpl = rng.integers(0, 4, 500).astype(np.uint8)
+    pairs = []
+    for i in range(24):
+        if i % 8 == 0:
+            io, mg = int(rng.integers(0, 200)), int(rng.integers(200, 600))
+            cov = np.concatenate([rng.integers(0, 4, mg // 2),
+                                  mutate(tmpl[io:], 0.12, rng),
+                                  rng.integers(0, 4, mg // 3)])
+            pairs.append((tmpl[io:], cov.astype(np.uint8), mg + 16))
+        else:
+            pairs.append((tmpl, mutate(tmpl, 0.12, rng), 96))
+    return pairs

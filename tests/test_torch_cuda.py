@@ -5,6 +5,10 @@ imports neither jax nor damar_tpu, so on the GPU machine it runs with
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -324,9 +328,9 @@ def test_retrace_rows_on_card_matches_cpu(dev):
 @pytest.mark.parametrize("bands,semi", [((64, 96), True), ((700, 96), True),
                                         ((200,), False), ((700,), False)])
 def test_band_align_kernel_matches_plain(dev, bands, semi):
-    """K4 on a ragged batch of mixed bands (cells a lane 8, 16 or 48),
-    both modes: ops, offsets and jstart equal band_align_plain's, and the
-    wrapper counts the launch."""
+    """K4 on a ragged batch of mixed bands (narrow and wide pairs in one
+    launch), both modes: ops, offsets and jstart equal
+    band_align_plain's, and the wrapper counts the launch."""
     from damar_tpu_torch.ops import band_align as ba
     from damar_tpu_torch.utils.sim import align_pairs_batch
     rng = np.random.default_rng(21)
@@ -337,6 +341,106 @@ def test_band_align_kernel_matches_plain(dev, bands, semi):
     want = ba.align_pairs(pairs, semi, device="cpu")
     for (g, gj), (w, wj) in zip(got, want):
         assert np.array_equal(g, w) and gj == wj
+
+
+def _k4_same(dev, pairs, semi):
+    """One K4 launch (align_pairs on the card, counted once) and the
+    device-tensor wrapper band_align_kernel both equal band_align_plain
+    on the pairs."""
+    from damar_tpu_torch.ops import band_align as ba
+    n0 = ba.band_align.launches
+    got = ba.align_pairs(pairs, semi, device=dev)
+    assert ba.band_align.launches == n0 + 1
+    want = ba.align_pairs(pairs, semi, device="cpu")
+    for (g, gj), (w, wj) in zip(got, want):
+        assert np.array_equal(g, w) and gj == wj
+    args = ba.pack_pairs(pairs, dev)
+    for x, y in zip(ba.band_align_kernel(*args, semi),
+                    ba.band_align_plain(*[t.cpu() for t in args], semi)):
+        assert torch.equal(x.cpu(), y)
+
+
+# (bands, longest template): narrow pairs only; each wide group size (2
+# to 6 warps, widths on both sides of each warp edge) with its codes in
+# shared memory (templates up to 500); the widest band with templates
+# whose codes do not fit (1,300 x 384 bytes: global scratch, staged walk)
+K4_CLASSES = {"narrow": ((64, 96, 127), 1300),
+              "w2": ((128, 255), 500), "w3": ((256, 383), 500),
+              "w4": ((384, 500), 500), "w5": ((600, 639), 500),
+              "w6": ((640, 696, 767), 500), "global_codes": ((767,), 1300)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("semi", [True, False])
+@pytest.mark.parametrize("cls", list(K4_CLASSES))
+def test_band_align_classes_match_plain(dev, cls, semi):
+    """Each of K4's classes alone, both modes, exactly as
+    band_align_plain."""
+    from damar_tpu_torch.ops import band_align as ba
+    from damar_tpu_torch.utils.sim import align_pairs_batch
+    bands, max_len = K4_CLASSES[cls]
+    pairs = align_pairs_batch(np.random.default_rng(len(cls) + semi), 60,
+                              bands=bands, semiglobal=semi,
+                              max_len=max_len)
+    plan = ba.plan_launch([len(p[0]) for p in pairs],
+                          [len(p[1]) for p in pairs], [p[2] for p in pairs])
+    if cls == "narrow":
+        assert plan.n_wide == 0 and plan.smem == 0
+    else:
+        assert plan.n_narrow == 0
+        assert (plan.c_off >= 0).any() == (cls == "global_codes")
+    _k4_same(dev, pairs, semi)
+
+
+@pytest.mark.cuda
+def test_band_align_polish_like_launch(dev):
+    """A polish window's launch (utils.sim.polish_window_pairs: one
+    500-code template, 21 covers at band 96, 3 first covers at bands
+    216-615 on template slices) in one launch, narrow and wide blocks
+    together, equal to
+    band_align_plain; a band above MAX_BAND and a global walk out of the
+    band raise on the card."""
+    from damar_tpu_torch.ops import band_align as ba
+    from damar_tpu_torch.utils.sim import polish_window_pairs
+    pairs = polish_window_pairs(np.random.default_rng(31))
+    tmpl = pairs[1][0]
+    plan = ba.plan_launch([len(p[0]) for p in pairs],
+                          [len(p[1]) for p in pairs], [p[2] for p in pairs])
+    assert plan.n_wide == 3 and plan.smem > 0
+    _k4_same(dev, pairs, True)
+    with pytest.raises(ValueError, match="band"):
+        ba.align_pairs([(tmpl, tmpl, ba.MAX_BAND + 1)], device=dev)
+    with pytest.raises(ValueError, match="band"):
+        ba.align_pairs([(tmpl, tmpl[:10], 8)], False, device=dev)
+
+
+# a fresh process whose first K4 launch is one wide pair (band 128, m =
+# 500) whose codes fit 48 KB but not 48 KB less the kernel's static
+# shared memory: the launch must raise the kernel's limit itself
+K4_FIRST_LAUNCH = """
+import numpy as np
+from damar_tpu_torch.ops import band_align as ba
+from damar_tpu_torch.utils.sim import mutate
+rng = np.random.default_rng(128)
+t = rng.integers(0, 4, 500).astype(np.uint8)
+pairs = [(t, mutate(t, 0.12, rng), 128)]
+plan = ba.plan_launch([500], [len(pairs[0][1])], [128])
+assert 40_000 < plan.smem <= 48 * 1024, plan.smem
+got = ba.align_pairs(pairs, device="cuda")
+want = ba.align_pairs(pairs, device="cpu")
+assert all(np.array_equal(g, w) and gj == wj
+           for (g, gj), (w, wj) in zip(got, want))
+"""
+
+
+@pytest.mark.cuda
+def test_band_align_first_launch_near_48k(dev):
+    """K4's first launch in a process, at 40,080 bytes of codes in
+    shared memory, equals band_align_plain."""
+    r = subprocess.run([sys.executable, "-c", K4_FIRST_LAUNCH],
+                       capture_output=True, text=True, timeout=900,
+                       cwd=Path(__file__).resolve().parents[1])
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 @pytest.mark.cuda
