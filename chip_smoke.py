@@ -132,10 +132,36 @@ Phases (any failure exits non-zero before the last line is printed):
      c. run_pipeline(polish=True) on the 12 kbp genome of the CPU tests,
         on the card and on the CPU path: CONTIGS.fasta, every .las, track
         and FIX.fasta byte-equal, report.json equal but for its walls;
+ 11. the pipeline's default block (PipelineConfig.block_mb = 200 Mbp),
+     the legacy payload path and -b, every default (no caps):
+     a. the sweep unit's reads (its genome from the same seed with 80
+        tandem arrays planted) split at 200 Mbp into 2 blocks; the dust
+        track, and the tan track of each block: block 1's datander
+        search (split into ranges of reads above 2^27 hits) with its
+        hits, seeds, peak memory and wall, its first K1 launch held
+        against its plain version;
+     b. run.py's overlap1 there: run_overlap_plan over the 3 pairs with
+        both masks; the 200 Mbp self pair must be seeded by slices:
+        each pair's path, slices, hits, seeds, phase times, the plan's
+        wall, Gbp-aligned/s and peak memory; check_las clean and sorted,
+        every record with its mirror, a second run skipping every pair,
+        the self pair's first PAIR_HELD launches equal to their plain
+        versions;
+     c. that pair's seeding again by slices and unsliced (_SLICE_CAP
+        raised in-process), in turns: each bit-identical to the plan's
+        seeds, with its wall and peak memory;
+     d, e. large-50Mbp cold, then warm with OverlapConfig(bias=True),
+        then a self pair of its reads and 8 reads of 150 kbp (a payload
+        of 33 bits: the legacy path); check_las clean, counts side by
+        side, the first K1, K2 and K3 launches of the -b and the legacy
+        pass equal to their plain versions;
+     f. phase 7's small pairs with -b, with the sliced path forced and
+        with the legacy path forced, and a self pair of reads over an
+        AT-rich genome with -b: card == CPU path;
 then print one JSON line of per-kernel results (`stage_launches`: each
-kernel's launches in phase 9, `assembly_launches` in phase 10b; K4's
-row holds phase 10b's launches and device time) and, last, the device
-line.
+kernel's launches in phase 9, `assembly_launches` in phase 10b,
+`default_block_launches` per path of phase 11; K4's row holds phase
+10b's launches and device time) and, last, the device line.
 """
 import argparse
 import filecmp
@@ -633,12 +659,14 @@ def lost_launches(where: str, counted: dict, profiled: dict) -> list:
 class Spy:
     """While the main path runs: keeps the arguments and outputs of
     each kernel launch function's calls that launched (its wrapper's
-    count moved; a call with no work launches nothing).  The launches
+    count moved; a call with no work launches nothing), or with `keep`
+    (kernel name -> n) only the first n of each kernel's.  The launches
     go through unchanged."""
 
-    def __init__(self):
+    def __init__(self, keep: dict | None = None):
         self.calls = {k: [] for k in KERNELS}
         self.orig = {}
+        self.keep = keep
 
     def __enter__(self):
         for name, (wrapper, mod, attr, *_rest) in KERNELS.items():
@@ -648,7 +676,9 @@ class Spy:
             def spy(*a, _fn=fn, _name=name, _w=wrapper, **kw):
                 n0 = _w.launches
                 out = _fn(*a, **kw)
-                if _w.launches != n0:
+                if _w.launches != n0 and (
+                        self.keep is None or len(self.calls[_name])
+                        < self.keep.get(_name, 0)):
                     self.calls[_name].append((a, kw, out))
                 return out
             setattr(mod, attr, spy)
@@ -855,6 +885,55 @@ def hold_launches(where: str, calls: dict) -> None:
             if e:
                 raise SystemExit(f"chip_smoke: {name} disagrees with its "
                                  f"plain version on the {where}")
+
+
+def small_reads(genome=None) -> list:
+    """Phase 7's reads: a 60 kbp genome (or `genome`) at 10x, mean 4 kb,
+    14% error."""
+    if genome is None:
+        genome = make_genome(60_000, seed=11)
+    return sample_reads(genome, coverage=10.0, mean_len=4000, err=0.14,
+                        seed=12).reads
+
+
+def card_equals_cpu(dev, reads: list, cfg: OverlapConfig, pairs=None,
+                    path: str | None = None, what: str = "") -> dict:
+    """A self pair of `reads` and a distinct pair of its halves (pairs:
+    a subset of "self", "distinct"), emit_mirrors on, on the card and on
+    the CPU path: the same .las columns, check_las clean, and with
+    `path` each seeding on that path.  Returns records per pair."""
+    h = len(reads) // 2
+    blk_a = block_from_reads(reads[:h], ids=np.arange(h))
+    blk_b = block_from_reads(reads[h:], ids=np.arange(h, len(reads)))
+    whole = block_from_reads(reads)
+    rlen = np.array([len(r) for r in reads])
+    todo = {"self": (whole, whole, True), "distinct": (blk_a, blk_b, False)}
+    out = {}
+    for label in pairs or todo:
+        x, y, selfb = todo[label]
+        outs = {}
+        for d in (dev, "cpu"):
+            outs[str(d)] = ov.overlap_block_pair(x, y, cfg, selfb,
+                                                 emit_mirrors=True, device=d)
+        gpu, cpu = outs[str(dev)], outs["cpu"]
+        label = f"{what}{label}"
+        for i in (0, 1):
+            problems = check_las(gpu[i], rlen)
+            if problems:
+                raise SystemExit(f"chip_smoke: {label} pair check_las: "
+                                 f"{problems[:5]}")
+            if not same_las(gpu[i], cpu[i]):
+                raise SystemExit(f"chip_smoke: {label} pair: card and CPU "
+                                 f"paths differ (las_{'ab'[i]})")
+        taken = {o[2]["seed_path"] for o in (gpu, cpu)}
+        if path is not None and taken != {path}:
+            raise SystemExit(f"chip_smoke: {label} pair: seeding took "
+                             f"{taken}, wanted {path}")
+        log(f"{label} pair, emit_mirrors: {gpu[0].novl} + {gpu[1].novl} "
+            f"records, card == CPU path, check_las clean, seeding "
+            f"{gpu[2]['seed_path']}")
+        out[label] = gpu[0].novl + gpu[1].novl
+    return out
 
 
 def build_db(workdir: str, genome_bp: int, nblocks: int):
@@ -2037,6 +2116,375 @@ def k4_row(asm: dict, errs: dict, sass: dict, card: str) -> tuple:
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the pipeline's default block (PipelineConfig.block_mb = 200 Mbp)
+# ---------------------------------------------------------------------------
+
+# the default-block DB: the sweep unit's reads split at block_mb, a block of
+# ~200 Mbp and one of ~2.8 Mbp; its genome from the same seed with tandem
+# arrays planted at the stages' density (20 in 2.5 Mbp), so that the
+# datander search finds seeds (the reads keep their lengths and the split)
+DEFAULT_BLOCKS, DEFAULT_TANDEMS = 2, 80
+# the legacy unit: large-50Mbp's reads and LEGACY_LONG reads of
+# LEGACY_LONG_BP cut from its genome and mutated at its error (seed
+# LEGACY_SEED): 14 read bits + 18 position bits + the strand = 33 bits
+LEGACY_LONG, LEGACY_LONG_BP, LEGACY_SEED = 8, 150_000, 2026
+# the first launch of each kernel held against its plain version on the
+# legacy and -b passes
+FIRST_HELD = {"bp_extend_kernel": 1, "bp_trace_kernel": 1,
+              "wide_trace_kernel": 1}
+# the seeding's slice threshold set in-process: above every pair's hits
+# (phase 11c's unsliced run), below the small pairs' (11f's forced slices)
+NO_SLICING, FORCE_SLICING = 1 << 62, 1 << 10
+
+
+def hold_first(where: str, spy: Spy, keep: dict) -> dict:
+    """The first keep[k] launches of each kernel k that `spy` kept,
+    capped at CAP items, held against their plain versions."""
+    held = {k: [capped(k, a, kw) for a, kw, _ in spy.calls[k][:m]]
+            for k, m in keep.items()}
+    n = {k: len(v) for k, v in held.items()}
+    if any(n[k] < m for k, m in keep.items()):
+        raise SystemExit(f"chip_smoke: {where}: launched {n}, wanted {keep}")
+    hold_launches(where, held)
+    return n
+
+
+def timed(dev, fn):
+    """(fn(), wall s, peak device bytes) of fn() with the counts at 0 and
+    the peak reset just before it; `read_launches()` after is its
+    launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, torch.cuda.max_memory_allocated(dev)
+
+
+def default_tracks(w: str, db, dev, card: str) -> dict:
+    """Phase 11a: the dust track of the default-block DB and the tan
+    track of each block (the datander search at every default, its
+    buffers sized from the counts); block 1's search numbers and its
+    first K1 launch held against extend_bp_plain."""
+    from damar_tpu_torch.core.config import MaskConfig
+    from damar_tpu_torch.formats import tracks
+    from damar_tpu_torch.pipeline import masking
+    ocfg, mcfg, path = OverlapConfig(), MaskConfig(), f"{w}/D.db"
+    t0 = time.time()
+    seqs = [db.read_seq(i) for i in range(db.ureads)]
+    tracks.write_track(path, masking.dust_track(seqs, mcfg))
+    del seqs
+    out = dict(dust_s=round(time.time() - t0, 4),
+               dust_bp=tracks.read_track(path, "dust").masked_bp())
+    log(f"default block: dust track of {db.ureads} reads {out['dust_s']} s "
+        f"(host), {out['dust_bp']} bp")
+    data = [np.zeros(0, np.int32)] * db.ureads
+    for b in range(1, db.nblocks + 1):
+        blk = block_from_db(db, b)
+        st = {}
+        with Spy(keep={"bp_extend_kernel": 1}) as spy:
+            trk, wall, peak = timed(dev, lambda: masking.tandem_track(
+                blk, ocfg, mcfg, stats=st, device=dev))
+        launches = read_launches()
+        for j, rid in enumerate(blk.ids):
+            data[int(rid)] = trk.data[j]
+        log(f"default block {b} ({blk.nbases} bp, cap {blk.cap}): tan search "
+            f"wall {wall:.4f} s, total_hits {st['total_hits']} in "
+            f"{st['pieces']} range(s) of reads ({'split' if st['pieces'] > 1 else 'unsplit'}, "
+            f"largest hit buffer {st['hit_buffer']}), seeds {st['nseeds']} "
+            f"of {st['total_seeds']}, extents {st['extents']}, tan bp "
+            f"{trk.masked_bp()}, peak device memory {peak / 2**30:.2f} GiB "
+            f"({peak} B), launches {launches} on {card}")
+        if b == 1:
+            out.update(tan_wall_s=round(wall, 4), tan_peak_bytes=peak,
+                       tan_launches=launches, tan_split=st["pieces"] > 1,
+                       **{f"tan_{k}": v for k, v in st.items()})
+            if launches["bp_extend_kernel"] <= 0:
+                raise SystemExit("chip_smoke: default block 1's tandem "
+                                 "search launched no K1")
+            hold_first("default block 1 tandem search", spy,
+                       {"bp_extend_kernel": 1})
+        del blk, spy
+    tracks.write_track(path, tracks.Track("tan", data))
+    bad = tracks_bad(tracks.read_track(path, "tan"), db.reads["rlen"])
+    if bad:
+        raise SystemExit(f"chip_smoke: default block: {bad} reads with tan "
+                         f"intervals out of their read or unsorted")
+    out["tan_bp"] = tracks.read_track(path, "tan").masked_bp()
+    return out
+
+
+def default_plan(w: str, db, dev, card: str) -> dict:
+    """Phase 11b: run.py's overlap1 on the default-block DB, composed as
+    run_stages composes it: run_overlap_plan over its 3 pairs with the
+    dust and tan masks, every default (hit_cap and seed_cap None).  The
+    self pair of block 1 must be seeded by slices; check_las clean and
+    sorted on the merged files, every record with its mirror, a second
+    run skipping every pair, the self pair's first PAIR_HELD launches
+    equal to their plain versions.  Returns the numbers, and the self
+    pair's last seeding (its block, arguments and result) for phase
+    11c."""
+    ocfg, rlen = OverlapConfig(), db.reads["rlen"]
+    self_seeding = {}
+    real = ov.find_seeds_canonical_dev
+
+    def keep_self_seeding(blk_a, blk_b, cfg, **kw):
+        res = real(blk_a, blk_b, cfg, **kw)
+        if kw.get("self_pair") and blk_a.nbases == db_block_bp[0]:
+            self_seeding.update(blk=blk_a, kw=kw, res=res)
+        return res
+
+    db_block_bp = [int(rlen[db.block_reads(1)].sum())]
+    ov.find_seeds_canonical_dev = keep_self_seeding
+    try:
+        with Spy(keep=PAIR_HELD) as spy:
+            stats, wall, peak = timed(dev, lambda: run_overlap_plan(
+                f"{w}/D.db", ocfg, verbose=False, mask_names=["dust", "tan"],
+                device=dev))
+        launches = read_launches()
+    finally:
+        ov.find_seeds_canonical_dev = real
+    pair_stats = stats.pop("pair_stats")
+    if stats["pairs"] != 3 or stats["skipped"]:
+        raise SystemExit(f"chip_smoke: default block plan ran {stats}")
+    missing = [k for k in MAIN_PATH if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernels not launched by the default "
+                         f"block plan: {missing}")
+    first = pair_stats[0]
+    if first["pair"] != "overlap.1.1" or first["seed_path"] != "sliced":
+        raise SystemExit(f"chip_smoke: default block: the first pair "
+                         f"{first['pair']} was seeded on the "
+                         f"{first['seed_path']} path, not by slices")
+    keys = ("seed_path", "seed_slices", "seed_runs", "total_hits",
+            "total_seeds", "seeds", "extents", "kept", "t_seed", "t_extend",
+            "t_dedupe", "t_pool", "t_trace", "t_trace_main",
+            "t_trace_retry", "t_trace_final", "trace_retries",
+            "dropped_trace")
+    for p in pair_stats:
+        log(f"  {p['pair']}: " + ", ".join(f"{k} {p[k]}" for k in keys
+                                           if k in p))
+    merged = [lasmod.read_las(f"{w}/D.{i}.las")
+              for i in range(1, db.nblocks + 1)]
+    for i, m in enumerate(merged, 1):
+        problems = check_las(m, rlen)
+        if problems:
+            raise SystemExit(f"chip_smoke: default block: check_las "
+                             f"D.{i}.las: {problems[:5]}")
+    novl = sum(m.novl for m in merged)
+    spans = sum(int(m.a_spans().sum()) for m in merged)
+    lost = mirrors_missing(merged, rlen)
+    del merged
+    if novl <= 0 or novl % 2 or lost:
+        raise SystemExit(f"chip_smoke: default block: {novl} merged "
+                         f"records, {lost} without their mirror")
+    again = run_overlap_plan(f"{w}/D.db", ocfg, verbose=False,
+                             mask_names=["dust", "tan"], device=dev)
+    if again["pairs"] or again["skipped"] != 3:
+        raise SystemExit(f"chip_smoke: default block: the second run "
+                         f"recomputed pairs: {again}")
+    aligned = spans // 2
+    log(f"default block plan (run_overlap_plan, 3 pairs, dust + tan "
+        f"masks, every default): wall {wall:.4f} s, aligned bp {aligned}, "
+        f"{aligned / wall / 1e9:.4f} Gbp-aligned/s/gpu, {novl} merged "
+        f"records (check_las clean and sorted, each with its mirror; "
+        f"second run skipped {again['skipped']}), peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} B), launches {launches} on {card}")
+    held = hold_first("default block self pair", spy, PAIR_HELD)
+    del spy
+    return dict(wall_s=round(wall, 4), aligned_bp=aligned, records=novl,
+                peak_bytes=peak, launches=launches, pairs=[
+                    {k: p[k] for k in ("pair",) + keys if k in p}
+                    for p in pair_stats], held=held), self_seeding
+
+
+def sliced_vs_unsliced(dev, card: str, blk, kw: dict, res,
+                       what: str) -> dict:
+    """Phase 11c: a self pair's seeding again by slices and unsliced
+    (_SLICE_CAP raised in-process), with the same arguments, in turns
+    (sliced, unsliced, unsliced, sliced: a run's wall depends on the
+    runs before it): each bit-identical to `res` (every seed column,
+    nseeds, total_seeds, total_hits); every run's wall and peak device
+    memory."""
+    from damar_tpu_torch.ops import seeding
+    out = {"sliced": [], "unsliced": []}
+    for label in ("sliced", "unsliced", "unsliced", "sliced"):
+        old = seeding._SLICE_CAP
+        if label == "unsliced":
+            seeding._SLICE_CAP = NO_SLICING
+        try:
+            got, wall, peak = timed(dev, lambda: seeding.
+                                    find_seeds_canonical_dev(
+                                        blk, blk, OverlapConfig(), **kw))
+        finally:
+            seeding._SLICE_CAP = old
+        if got["path"] != ("sliced" if label == "sliced" else "packed"):
+            raise SystemExit(f"chip_smoke: {what}: the {label} run took "
+                             f"the {got['path']} path")
+        bad = [k for k in ("nseeds", "total_seeds", "total_hits")
+               if got[k] != res[k]]
+        bad += [k for k in ("aread", "bread", "apos", "bpos", "cov", "comp")
+                if not torch.equal(got[k], res[k])]
+        if bad:
+            raise SystemExit(f"chip_smoke: {what}: the {label} seeds differ "
+                             f"in {bad}")
+        out[label].append(dict(wall_s=round(wall, 4), peak_bytes=peak))
+        log(f"{what}, {label} seeding: wall {wall:.4f} s, peak device "
+            f"memory {peak / 2**30:.2f} GiB ({peak} B), slices "
+            f"{got.get('slices')}; seeds bit-identical to the plan's "
+            f"({res['nseeds']} of {res['total_seeds']}, total_hits "
+            f"{res['total_hits']}) on {card}")
+        del got
+    return dict(out, unit=what, nseeds=res["nseeds"],
+                total_hits=res["total_hits"])
+
+
+def legacy_and_bias(dev, card: str) -> dict:
+    """Phases 11d and 11e on large-50Mbp: a cold unbiased pass (the
+    packed path's counts), a warm pass with OverlapConfig(bias=True)
+    (-b), then the legacy unit's self pair (LEGACY_LONG reads of
+    LEGACY_LONG_BP added: a 33-bit payload), each with check_las clean
+    and its first K1, K2 and K3 launches held against their plain
+    versions.  Returns the numbers."""
+    from damar_tpu_torch.ops import seeding
+    g = make_genome(GENOME, seed=SEED)
+    reads = sample_reads(g, coverage=COVERAGE, mean_len=MEAN_LEN, err=ERR,
+                         seed=SEED + 1).reads
+    blk = block_from_reads(reads)
+    out = {}
+
+    def one(label, b, cfg, spy=None):
+        (la, _, st), wall, peak = timed(dev, lambda: ov.overlap_block_pair(
+            b, b, cfg, True, emit_mirrors=False, device=dev))
+        launches = read_launches()
+        problems = check_las(la, b.rlen)
+        if problems or la.novl <= 0:
+            raise SystemExit(f"chip_smoke: {label}: {la.novl} records, "
+                             f"check_las {problems[:5]}")
+        aligned = int(la.a_spans().sum())
+        r = dict(path=st["seed_path"], total_hits=st["total_hits"],
+                 total_seeds=st["total_seeds"], seeds=st["seeds"],
+                 overlaps=la.novl, aligned_bp=aligned, wall_s=round(wall, 4),
+                 peak_bytes=peak, t_seed=st["t_seed"],
+                 seed_runs=st["seed_runs"], launches=launches)
+        log(f"{label}: " + ", ".join(f"{k} {v}" for k, v in r.items())
+            + f"; check_las clean on {card}")
+        return r
+
+    out["packed"] = one("large-50Mbp, cold, unbiased", blk, OverlapConfig())
+    with Spy(keep=FIRST_HELD) as spy:
+        out["bias"] = one("large-50Mbp, warm, -b (bias=True)", blk,
+                          OverlapConfig(bias=True))
+    out["bias_equals_unbiased"] = all(
+        out["bias"][k] == out["packed"][k]
+        for k in ("total_seeds", "seeds", "overlaps", "aligned_bp"))
+    out["bias_held"] = hold_first("large-50Mbp -b pass", spy, FIRST_HELD)
+    del spy
+    rng = np.random.default_rng(LEGACY_SEED)
+    starts = rng.integers(0, len(g) - LEGACY_LONG_BP, LEGACY_LONG)
+    long = [mutate(g[s:s + LEGACY_LONG_BP], ERR, rng) for s in starts]
+    lblk = block_from_reads(list(reads) + long)
+    bits = seeding.payload_bits(lblk)
+    if sum(bits) + 1 <= 32:
+        raise SystemExit(f"chip_smoke: legacy unit payload {bits}")
+    with Spy(keep=FIRST_HELD) as spy:
+        out["legacy"] = one(f"legacy-50Mbp ({lblk.nreads} reads, the "
+                            f"longest {int(lblk.rlen.max())} bp, payload "
+                            f"{bits[0]} + {bits[1]} + 1 bits), cold", lblk,
+                            OverlapConfig())
+    if out["legacy"]["path"] != "legacy" or out["packed"]["path"] != "packed":
+        raise SystemExit(f"chip_smoke: the legacy unit was seeded on the "
+                         f"{out['legacy']['path']} path, large-50Mbp on the "
+                         f"{out['packed']['path']} path")
+    out["legacy_held"] = hold_first("legacy-50Mbp pair", spy, FIRST_HELD)
+    return out
+
+
+def forced_small_pairs(dev) -> dict:
+    """Phase 11f: phase 7's small pairs on the card == the CPU path with
+    -b, with the sliced path forced (_SLICE_CAP lowered) and with the
+    legacy path forced (packed_payload_host returning None), and -b on
+    a self pair of reads over an AT-rich genome (40% A, 10% C, 10% G, 40%
+    T), where the weights differ from one base to another."""
+    from damar_tpu_torch.ops import seeding
+    reads = small_reads()
+    out = {"bias": card_equals_cpu(dev, reads, OverlapConfig(bias=True),
+                                   what="-b ")}
+    old_cap, old_payload = seeding._SLICE_CAP, seeding.packed_payload_host
+    try:
+        seeding._SLICE_CAP = FORCE_SLICING
+        out["sliced"] = card_equals_cpu(dev, reads, OverlapConfig(),
+                                        path="sliced", what="forced sliced ")
+        seeding._SLICE_CAP = old_cap
+        seeding.packed_payload_host = lambda blk: None
+        out["legacy"] = card_equals_cpu(dev, reads, OverlapConfig(),
+                                        path="legacy", what="forced legacy ")
+    finally:
+        seeding._SLICE_CAP, seeding.packed_payload_host = (old_cap,
+                                                           old_payload)
+    at = np.random.default_rng(77).choice(
+        4, 60_000, p=[0.4, 0.1, 0.1, 0.4]).astype(np.uint8)
+    out["bias_at_rich"] = card_equals_cpu(
+        dev, small_reads(at), OverlapConfig(bias=True), pairs=["self"],
+        what="-b AT-rich ")
+    return out
+
+
+def default_block_phase(dev, card: str) -> dict:
+    """Phase 11 (see the module docstring).  Returns its numbers and the
+    launches of each kernel per path (tan, plan, bias, legacy)."""
+    from damar_tpu_torch.core.config import PipelineConfig
+    w = tempfile.mkdtemp(prefix="damar_smoke_default_block_")
+    try:
+        t0 = time.time()
+        sim = sample_reads(make_genome(GENOME_SWEEP, seed=SEED,
+                                       tandem=DEFAULT_TANDEMS),
+                           coverage=COVERAGE, mean_len=MEAN_LEN, err=ERR,
+                           seed=SEED + 1)
+        write_sim_fasta(f"{w}/reads.fasta", sim)
+        del sim
+        dazzdb.create_db(f"{w}/D.db", [f"{w}/reads.fasta"])
+        db = dazzdb.db_split(f"{w}/D.db", size_mb=PipelineConfig().block_mb,
+                             cutoff=0)
+        split = [int(db.reads["rlen"][db.block_reads(b)].sum())
+                 for b in range(1, db.nblocks + 1)]
+        log(f"default block: {db.ureads} reads split at "
+            f"{PipelineConfig().block_mb} Mbp into {db.nblocks} blocks of "
+            f"{split} bp, the longest read {int(db.reads['rlen'].max())} bp; "
+            f"reads, FASTA, DB and split {time.time() - t0:.1f} s")
+        if db.nblocks != DEFAULT_BLOCKS:
+            raise SystemExit(f"chip_smoke: default block: {db.nblocks} "
+                             f"blocks")
+        t0 = time.time()
+        res = dict(blocks_bp=split, tracks=default_tracks(w, db, dev, card))
+        log(f"phase 11a: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        res["plan"], seeding_kept = default_plan(w, db, dev, card)
+        log(f"phase 11b: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        res["sliced_vs_unsliced"] = sliced_vs_unsliced(
+            dev, card, seeding_kept["blk"], seeding_kept["kw"],
+            seeding_kept["res"], "default block 1 self pair")
+        del seeding_kept
+        log(f"phase 11c: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(w, ignore_errors=True)
+    t0 = time.time()
+    res["passes"] = legacy_and_bias(dev, card)
+    log(f"phases 11d, 11e: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    res["small_pairs"] = forced_small_pairs(dev)
+    log(f"phase 11f: {time.time() - t0:.1f} s")
+    res["launches"] = dict(tan=res["tracks"].pop("tan_launches"),
+                           plan=res["plan"].pop("launches"),
+                           bias=res["passes"]["bias"].pop("launches"),
+                           legacy=res["passes"]["legacy"].pop("launches"))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--passes", type=int, default=1,
@@ -2260,30 +2708,7 @@ def main(argv=None) -> int:
 
     # ---- small pairs: card == CPU path (== damar_tpu, per the tests) ----
     t0 = time.time()
-    small = sample_reads(make_genome(60_000, seed=11), coverage=10.0,
-                         mean_len=4000, err=0.14, seed=12).reads
-    h = len(small) // 2
-    blk_a = block_from_reads(small[:h], ids=np.arange(h))
-    blk_b = block_from_reads(small[h:], ids=np.arange(h, len(small)))
-    whole = block_from_reads(small)
-    rlen = np.array([len(r) for r in small])
-    for label, (x, y, selfb) in {"self": (whole, whole, True),
-                                 "distinct": (blk_a, blk_b, False)}.items():
-        outs = {}
-        for d in (dev, "cpu"):
-            outs[str(d)] = ov.overlap_block_pair(x, y, cfg, selfb,
-                                                 emit_mirrors=True, device=d)
-        gpu, cpu = outs[str(dev)], outs["cpu"]
-        for i in (0, 1):
-            problems = check_las(gpu[i], rlen)
-            if problems:
-                raise SystemExit(f"chip_smoke: {label} pair check_las: "
-                                 f"{problems[:5]}")
-            if not same_las(gpu[i], cpu[i]):
-                raise SystemExit(f"chip_smoke: {label} pair: card and CPU "
-                                 f"paths differ (las_{'ab'[i]})")
-        log(f"{label} pair, emit_mirrors: {gpu[0].novl} + {gpu[1].novl} "
-            f"records, card == CPU path, check_las clean")
+    card_equals_cpu(dev, small_reads(), cfg)
     log(f"small pairs: {time.time() - t0:.1f} s")
 
     # ---- the block sweep from a DB on disk ----
@@ -2333,9 +2758,20 @@ def main(argv=None) -> int:
     asm["tiny"] = assembly_tiny(dev)
     log(f"phase 10c: {asm['tiny']} ({time.time() - t0:.1f} s)")
 
+    # ---- the pipeline's default 200 Mbp block, the legacy payload path
+    # and -b ----
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    default = default_block_phase(dev, card)
+    log(f"phase 11: {time.time() - t0:.1f} s")
+    per_path = default.pop("launches")
+    for r in rows:
+        r["default_block_launches"] = {k: v[r["name"]]
+                                       for k, v in per_path.items()}
+
     print(json.dumps({"kernels": rows, "wide_retry_routes": routes,
                       "wide_route": wide, "sweep": swept, "stages": staged,
-                      "assembly": asm,
+                      "assembly": asm, "default_block": default,
                       "profiler_lost_launches": LOST_LAUNCHES}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

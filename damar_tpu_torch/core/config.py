@@ -22,8 +22,8 @@ class OverlapConfig:
     min_len: int = 1000         # -l  min overlap length to report
     tspace: int = 100           # -s  trace-point spacing
     identity: bool = False      # -I  report self-overlaps of a read
-    bias: bool = False          # -b  biased-composition seeding (not
-                                #     ported yet: the seeding raises)
+    bias: bool = False          # -b  biased-composition seeding: band
+                                #     coverage weighted by composition
     # --- kernel shape parameters (not in the reference) ---
     band_width: int = 128       # wide-DP band lanes (the wide trace tier)
     xdrop: int = 60             # X-drop termination threshold (diff units)

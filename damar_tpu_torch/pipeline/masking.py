@@ -132,7 +132,7 @@ def tandem_track(blk: ReadBlock, ocfg: OverlapConfig, cfg: MaskConfig,
     if stats is not None:
         stats.update({k: seeds[k] for k in (
             "nhits", "total_hits", "nseeds", "total_seeds", "hit_buffer",
-            "seed_buffer")}, extents=exts["n"])
+            "seed_buffer", "pieces")}, extents=exts["n"])
     sel = np.nonzero(exts["aread"] == exts["bread"])[0]
     j = exts["aread"][sel].astype(np.int64)
     lo = np.minimum(exts["abpos"][sel], exts["bbpos"][sel]).astype(np.int64)

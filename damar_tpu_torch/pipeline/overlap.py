@@ -47,7 +47,8 @@ from damar_tpu_torch.formats.las import (H_ABPOS, H_AEPOS, H_AREAD,
                                          LasColumns, LasFile,
                                          encode_trace_columns)
 from damar_tpu_torch.formats.oflags import OVL_COMP, OVL_DISCARD
-from damar_tpu_torch.ops.seeding import (canonical_index_dev,
+from damar_tpu_torch.ops.seeding import (bias_weight_lut,
+                                         canonical_index_dev,
                                          find_seeds_canonical_dev,
                                          quantize_bits)
 from damar_tpu_torch.ops.sort import pack_fields, radix_sort_packed
@@ -961,9 +962,6 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
     blk_b_rc = _rc_cached(blk_b)
     blk_a_rc = _rc_cached(blk_a) if emit_mirrors else None
     stats = dict(seeds=0, extents=0, kept=0, dropped_trace=0)
-    if getattr(cfg, "bias", False):
-        raise NotImplementedError("-b (biased-composition seeding) is "
-                                  "not ported")
     t_ph = time.time()
     to_dev = lambda m: (None if m is None  # noqa: E731
                         else torch.as_tensor(np.asarray(m, dtype=bool),
@@ -988,10 +986,12 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         kw = dict(kw, dev_arrays=(a_bases_d, a_rid_d, bb_d, br_d))
         return find_seeds_canonical_dev(blk_a, blk_b, cfg, **kw)
 
+    # -b: composition weights of the A block (host numpy, as damar_tpu)
+    bias_lut = bias_weight_lut(blk_a.bases) if cfg.bias else None
     kw = dict(mask_a=am, mask_b=bm, upper_only=self_block,
               hit_cap=hit_cap,
               seed_cap=SEED_CAP_START if seed_cap is None else seed_cap,
-              a_index=a_index, self_pair=self_block)
+              a_index=a_index, self_pair=self_block, bias_lut=bias_lut)
     # hints are a running max of exact measured totals, passed unpadded:
     # the buffer caps are pow2-bucketed downstream, and an undershoot
     # costs one exact grow-retry
@@ -1000,6 +1000,7 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
     if size_hints and size_hints.get("nnz"):
         kw["emit_hint"] = size_hints["nnz"]
     seeds = run_seeding(kw)
+    stats["seed_runs"] = 1
     # overflow retries grow whichever fixed buffer saturated: the raw
     # hit buffer (up to hit_cap; sized from the exact total already
     # when hit_cap is None), the seed buffer (up to 4x an explicit
@@ -1026,6 +1027,7 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         if seeds["total_emit"] > seeds["tcap"]:
             kw = dict(kw, emit_hint=seeds["total_emit"])
         seeds = run_seeding(kw)
+        stats["seed_runs"] += 1
     if size_hints is not None:
         size_hints["raw"] = max(seeds["total_hits"],
                                 size_hints.get("raw", 0) // 2)
@@ -1037,6 +1039,9 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
             f"seeding overflowed its sized buffers: total_hits "
             f"{seeds['total_hits']}, total_seeds {seeds['total_seeds']}")
     stats["seed_overflow"] = seeds["overflow"]
+    stats["seed_path"] = seeds["path"]
+    if "slices" in seeds:
+        stats["seed_slices"] = seeds["slices"]
     stats["total_hits"] = int(seeds["total_hits"])
     stats["total_seeds"] = int(seeds["total_seeds"])
     _sync(device)
@@ -1114,8 +1119,10 @@ def overlap_block_pair(blk_a: ReadBlock, blk_b: ReadBlock,
 
     hit_cap/seed_cap: the seeding buffers' caps.  None (the default)
     sizes them from the count phase's exact totals, so no hit or seed is
-    ever cut off (a hit total above ops.seeding._SLICE_CAP raises
-    NotImplementedError).  An explicit cap reproduces damar_tpu's
+    ever cut off (a hit total above ops.seeding._SLICE_CAP is seeded by
+    slices of B reads; stats["seed_path"] names the path, "packed",
+    "sliced" or "legacy", and stats["seed_slices"] the slices' tuples,
+    hits and buffers).  An explicit cap reproduces damar_tpu's
     buffers, which cut the seeding short when the totals pass them
     (4 x seed_cap for the seeds): stats["seed_overflow"] is then true,
     and run_overlap_plan refuses such a pair.

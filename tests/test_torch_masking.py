@@ -259,20 +259,41 @@ def test_device_has_no_default(tandem_reads):
         ov.retrace_rows(LasFile(100), [], pb, pb, OverlapConfig())
 
 
-def test_tandem_hit_buffer_above_slice_cap_raises(tandem_reads,
-                                                   monkeypatch):
-    """A sized hit buffer above _SLICE_CAP needs the sliced path, which
-    is not ported: the search says so before it fills anything."""
-    pb = block_from_reads(tandem_reads)
-    monkeypatch.setattr(seeding, "_SLICE_CAP", 1 << 10)
-    with pytest.raises(NotImplementedError, match="sliced seeding path"):
-        seeding.find_tandem_seeds(pb, OverlapConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sliced seeding path"):
-        seeding.find_tandem_seeds(pb, OverlapConfig(), hit_cap=1 << 11,
-                                  device="cpu")
-    out = seeding.find_tandem_seeds(pb, OverlapConfig(), hit_cap=1 << 10,
-                                    device="cpu")
-    assert out["hit_buffer"] == out["nhits"] == 1 << 10
+@pytest.mark.parametrize("case", ["split", "explicit_cap"])
+def test_tandem_search_above_slice_cap(tandem_reads, monkeypatch, case):
+    """With _SLICE_CAP lowered below the block's hits: the sized search
+    runs by ranges of reads (split), and its seeds, counts and buffers
+    are the unsplit search's and the reference's (caps that hold every
+    hit); an explicit hit_cap still reproduces the reference's cut
+    however far it passes _SLICE_CAP, in one piece."""
+    rb, pb = ref_block(tandem_reads), block_from_reads(tandem_reads)
+    cfg, rcfg = OverlapConfig(), RefConfig()
+    if case == "split":
+        unsplit = seeding.find_tandem_seeds(pb, cfg, device="cpu")
+        want = ref_seeding.find_tandem_seeds(rb, rcfg)
+        monkeypatch.setattr(seeding, "_SLICE_CAP",
+                            unsplit["total_hits"] // 5)
+        got = seeding.find_tandem_seeds(pb, cfg, device="cpu")
+        assert got["pieces"] >= 5 and unsplit["pieces"] == 1
+        assert got["hit_buffer"] < unsplit["hit_buffer"]
+        for k in ("nseeds", "total_seeds", "nhits", "total_hits",
+                  "seed_buffer"):
+            assert got[k] == unsplit[k], k
+        for k in SEED_KEYS:
+            assert torch.equal(got[k], unsplit[k]), k
+    else:
+        monkeypatch.setattr(seeding, "_SLICE_CAP", 1 << 10)
+        want = ref_seeding.find_tandem_seeds(rb, rcfg, hit_cap=1 << 16)
+        got = seeding.find_tandem_seeds(pb, cfg, hit_cap=1 << 16,
+                                        device="cpu")
+        assert got["hit_buffer"] == got["nhits"] == 1 << 16
+        assert got["pieces"] == 1 and got["total_hits"] > 1 << 16
+    assert (got["nhits"], got["total_hits"], got["nseeds"]) == \
+        (want["nhits"], want["total_hits"], want["nseeds"])
+    assert want["nseeds"] == want["total_seeds"] > 0
+    for k in SEED_KEYS:
+        np.testing.assert_array_equal(got[k].numpy()[:want["nseeds"]],
+                                      want[k][:want["nseeds"]])
 
 
 @pytest.mark.parametrize("nblocks", [1, 3, 6])

@@ -92,17 +92,6 @@ def test_truncated_buffers_match(reads):
     _compare(ref, got)
 
 
-def test_unported_paths_raise(reads):
-    pb = block_from_reads(reads)
-    with pytest.raises(NotImplementedError):
-        seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(bias=True),
-                                         self_pair=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        seeding.find_seeds_canonical_dev(pb, pb, OverlapConfig(),
-                                         self_pair=True, hit_cap=1 << 28,
-                                         raw_hint=1 << 28, device="cpu")
-
-
 def test_device_has_no_default(reads):
     """Without dev_arrays the caller names the device: leaving it out
     raises instead of running on the host; dev_arrays carry their own

@@ -129,7 +129,8 @@ PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
     "pipeline.consensus", "pipeline.contigs", "pipeline.graph",
     "pipeline.masking", "pipeline.overlap", "pipeline.planner",
     "pipeline.poa", "pipeline.run", "pipeline.scrub", "pipeline.touring",
-    "tools.compare_wave_bp", "tools.profile_window", "utils.dust",
+    "tools.compare_wave_bp", "tools.profile_window", "tools.seed_peaks",
+    "utils.dust",
     "utils.sim")]
 
 
