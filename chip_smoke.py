@@ -77,8 +77,8 @@ Phases (any failure exits non-zero before the last line is printed):
      the forms); check_las clean and sorted on every merged file; every
      record must have its mirror; a second run_overlap_plan must find
      every job done.  Walls, Gbp-aligned/s, per-pair phase times and
-     peak memory are printed for both.  Then half the pairs again as
-     host 0 of 2 with DAMAR_RESIDENT_BLOCKS=1, so that blocks' device
+     peak memory are printed for both.  Then a quarter of the pairs again
+     as host 0 of 4 with DAMAR_RESIDENT_BLOCKS=1, so that blocks' device
      buffers are released while the pair before is still in its emit on
      the worker's stream: the same bytes.  Then one distinct pair (B !=
      A, mirrors on) with every launch kept: its files must be the plain
@@ -147,8 +147,8 @@ Phases (any failure exits non-zero before the last line is printed):
         every record with its mirror, a second run skipping every pair,
         the self pair's first PAIR_HELD launches equal to their plain
         versions;
-     c. that pair's seeding again by slices and unsliced (_SLICE_CAP
-        raised in-process), in turns: each bit-identical to the plan's
+     c. that pair's seeding again unsliced (_SLICE_CAP raised
+        in-process): bit-identical to the plan's sliced
         seeds, with its wall and peak memory;
      d, e. large-50Mbp cold, then warm with OverlapConfig(bias=True),
         then a self pair of its reads and 8 reads of 150 kbp (a payload
@@ -158,13 +158,40 @@ Phases (any failure exits non-zero before the last line is printed):
      f. phase 7's small pairs with -b, with the sliced path forced and
         with the legacy path forced, and a self pair of reads over an
         AT-rich genome with -b: card == CPU path;
+ 12. the command-line toolbox (damar_tpu_torch.cli.main in this process,
+     DAMAR_PLATFORM unset: the card):
+     a. after 10a, on a copy of phase 9's DB: dbstats, hpc-plan, dbdust,
+        datander, overlap-all -m dust -m tan, lacheck on every merged
+        file, lashow --limit 50, lashow -a --limit 20 (every segment in
+        one K4 launch), lastitch -b 1, laq, lagap, lafilter; then
+        ogbuild, ogtour, tour2fasta and assemble on phase 9's FIX DB and
+        filtered file: the tracks and every pair's and merged .las file
+        byte-equal to phase 9's (the same settings; phase 9's explicit
+        caps change no byte), lacheck clean, tour2fasta's contigs
+        assemble's; each tool's wall and the launches, the first K1, K2
+        and K3 launches and lashow -a's K4 launch held against their
+        plain versions (capped at CAP items);
+     b. after 10b, on its DB and filtered file: assemble --polish, K4's
+        launches and device time, its first launch held against its
+        plain version (capped at CAP items), the longest polished
+        contig's k-mer hit rate against the genome above 10b's gate;
+     c. after 10c: the pipeline tool on the 12 kbp genome, CONTIGS.fasta
+        byte-equal to phase 10c's run_pipeline on the card;
+     d. a rendered hpc-plan daligner line run as-is by a shell in a
+        directory holding a copy of phase 10c's DB, as fresh processes:
+        with DAMAR_PLATFORM unset it writes the in-process daligner's
+        file, with no card visible it exits non-zero naming the missing
+        card, with DAMAR_PLATFORM=cpu it writes the same bytes;
 then print one JSON line of per-kernel results (`stage_launches`: each
 kernel's launches in phase 9, `assembly_launches` in phase 10b,
-`default_block_launches` per path of phase 11; K4's row holds phase
-10b's launches and device time) and, last, the device line.
+`default_block_launches` per path of phase 11, `cli_launches` over
+phase 12's in-process tools; K4's row holds phase 10b's launches and
+device time) and, last, the device line.
 """
 import argparse
+import contextlib
 import filecmp
+import io
 import json
 import os
 import re
@@ -197,6 +224,8 @@ from damar_tpu_torch.utils.sim import (align_pairs_batch, band_batch,
 GENOME, COVERAGE, MEAN_LEN, ERR, SEED = 2_500_000, 20.0, 6_000, 0.14, 2024
 HIT_CAP, SEED_CAP = 1 << 27, 1 << 21
 CAP = 16_384          # work items of a first launch held against plain
+# the sweep's pass with one resident block runs host 0's pairs of this many
+EVICT_HOSTS = 4
 # the wide route's unit: the quick size of the reference's bench
 GENOME_QUICK, QUICK_HIT_CAP, QUICK_SEED_CAP = 500_000, 1 << 25, 1 << 19
 # the sweep's unit: the main unit's genome scaled 4x, split into 4 blocks
@@ -798,8 +827,9 @@ def compare_wide_routes(jobs: list, want: list, card: str) -> dict:
     """The profiled pass's wide retries (every wide_trace_kernel launch's
     arguments) again through the earlier route, trace_wave_steps over
     dp_rows_kernel (one launch per segment step, the gathers and commit
-    as torch ops), and through wide_trace_kernel, in turns, three times
-    (medians).  Each route's outputs must equal `want`, the plain
+    as torch ops), and through wide_trace_kernel, once each (the route
+    question is answered, PERF.md §6: one turn keeps the holds and a
+    time).  Each route's outputs must equal `want`, the plain
     version's on the same arguments.  Also the longest extent alone
     (CUDA events over three launches): the serial row chain's floor."""
     def steps():
@@ -816,16 +846,11 @@ def compare_wide_routes(jobs: list, want: list, card: str) -> dict:
     for name, (fn, kern, counted) in routes.items():
         n0 = counted.launches
         err = max(max_abs_err(x, y) for x, y in zip(fn(), want))
-        res[name] = dict(equal=err == 0, launches=counted.launches - n0,
-                         t=[])
-    for _ in range(3):
-        for name, (fn, kern, _) in routes.items():
-            res[name]["t"].append(route_times(fn, kern))
+        res[name] = dict(equal=err == 0, launches=counted.launches - n0)
+    for name, (fn, kern, _) in routes.items():
+        res[name].update(zip(("kernel_ms", "device_ms", "wall_s"),
+                             route_times(fn, kern)))
     for name, r in res.items():
-        t = r.pop("t")
-        r.update(kernel_ms=float(np.median([x[0] for x in t])),
-                 device_ms=float(np.median([x[1] for x in t])),
-                 wall_s=float(np.median([x[2] for x in t])))
         log(f"wide retries via {name}: outputs equal {r['equal']}, "
             f"{r['launches']} kernel launches, kernel {r['kernel_ms']:.4f} "
             f"ms and all device work {r['device_ms']:.4f} ms device time, "
@@ -1310,10 +1335,10 @@ def sweep_phase(dev, card: str, rounds: int) -> dict:
                 f"byte-equal; on {card}")
         log(f"launches in the sweep: {launches}")
 
-        # ---- (e) half the pairs again (host 0 of 2) with one resident
-        # block: every B block's device buffers are released, and every
-        # A block's when its row ends, while the pair before is still in
-        # its emit on the worker's stream ----
+        # ---- (e) a quarter of the pairs again (host 0 of 4) with one
+        # resident block: every B block's device buffers are released,
+        # and every A block's when its row ends, while the pair before is
+        # still in its emit on the worker's stream ----
         released = []
         real = ov.release_device_buffers
         ov.release_device_buffers = lambda b: released.append(1) or real(b)
@@ -1321,7 +1346,7 @@ def sweep_phase(dev, card: str, rounds: int) -> dict:
         os.makedirs(f"{w}/evict")
         try:
             t0 = time.time()
-            half = plan(f"{w}/evict", nhosts=2, host_id=0)
+            half = plan(f"{w}/evict", nhosts=EVICT_HOSTS, host_id=0)
             t_half = time.time() - t0
         finally:
             ov.release_device_buffers = real
@@ -1330,12 +1355,14 @@ def sweep_phase(dev, card: str, rounds: int) -> dict:
                 if f.endswith(".las")]
         bad = same_files(f"{w}/evict", f"{w}/sweep", mine)
         half.pop("pair_stats", None)
-        if (not released or bad or half["pairs"] != (len(pairs) + 1) // 2
+        if (not released or bad
+                or half["pairs"] != len(pairs[::EVICT_HOSTS])
                 or half.get("merges_deferred") != n):
             raise SystemExit(f"chip_smoke: sweep with one resident block: "
                              f"{len(released)} releases, {bad} differs, "
                              f"stats {half}")
-        log(f"sweep, host 0 of 2, DAMAR_RESIDENT_BLOCKS=1: {half['pairs']} "
+        log(f"sweep, host 0 of {EVICT_HOSTS}, DAMAR_RESIDENT_BLOCKS=1: "
+            f"{half['pairs']} "
             f"pairs, {len(released)} blocks released under pending emits, "
             f"{len(mine)} files byte-equal to the sweep's ({t_half:.1f} s)")
 
@@ -2005,8 +2032,11 @@ def assembly_phase(dev, card: str, sass: dict) -> dict:
         if hit <= 0.45:
             raise SystemExit(f"chip_smoke: phase 10b: the longest contig's "
                              f"k-mer hit rate {hit:.4f} <= 0.45")
+        t0 = time.time()
+        polished = cli_polish(w, genome, card)
+        log(f"phase 12b: {time.time() - t0:.1f} s")
         return dict(out, launches=launches, first=k4.first,
-                    first_wide=k4.first_wide)
+                    first_wide=k4.first_wide, cli_polish=polished)
     finally:
         shutil.rmtree(w, ignore_errors=True)
 
@@ -2015,7 +2045,8 @@ def assembly_tiny(dev) -> dict:
     """Phase 10c: run_pipeline(polish=True) on the 12 kbp genome of the
     CPU tests, on the card and on the CPU path: CONTIGS.fasta, every .las,
     track and FIX.fasta byte-equal, report.json equal but for its walls
-    and paths."""
+    and paths.  Then phases 12c and 12d there (the `pipeline` tool, and a
+    rendered line in fresh processes); their numbers under "cli"."""
     from damar_tpu_torch.core.config import PipelineConfig
     from damar_tpu_torch.pipeline.run import run_pipeline
     g = make_genome(12_000, seed=81)
@@ -2052,7 +2083,13 @@ def assembly_tiny(dev) -> dict:
         if strip(rc) != strip(rp):
             raise SystemExit("chip_smoke: tiny assembly: report.json "
                              "differs between the card and the CPU path")
-        return dict(files=len(names),
+        t0 = time.time()
+        piped = cli_pipeline(base, wc)
+        log(f"phase 12c: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        fresh = cli_fresh(base, wc)
+        log(f"phase 12d: {time.time() - t0:.1f} s")
+        return dict(cli=dict(pipeline=piped, fresh=fresh), files=len(names),
                     contigs=rc["phases"]["assemble"]["contigs"],
                     lengths=rc["phases"]["assemble"]["lengths"],
                     card_s=walls[str(dev)], cpu_s=walls["cpu"])
@@ -2301,45 +2338,37 @@ def default_plan(w: str, db, dev, card: str) -> dict:
                     for p in pair_stats], held=held), self_seeding
 
 
-def sliced_vs_unsliced(dev, card: str, blk, kw: dict, res,
-                       what: str) -> dict:
-    """Phase 11c: a self pair's seeding again by slices and unsliced
-    (_SLICE_CAP raised in-process), with the same arguments, in turns
-    (sliced, unsliced, unsliced, sliced: a run's wall depends on the
-    runs before it): each bit-identical to `res` (every seed column,
-    nseeds, total_seeds, total_hits); every run's wall and peak device
-    memory."""
+def unsliced_again(dev, card: str, blk, kw: dict, res, what: str) -> dict:
+    """Phase 11c: a self pair's seeding again unsliced (_SLICE_CAP raised
+    in-process), with the arguments of the plan's sliced run: bit-
+    identical to `res`, the plan's (every seed column, nseeds,
+    total_seeds, total_hits); its wall and peak device memory.  (The
+    turns of sliced and unsliced runs that compared their walls are done:
+    PERF.md §6.)"""
     from damar_tpu_torch.ops import seeding
-    out = {"sliced": [], "unsliced": []}
-    for label in ("sliced", "unsliced", "unsliced", "sliced"):
-        old = seeding._SLICE_CAP
-        if label == "unsliced":
-            seeding._SLICE_CAP = NO_SLICING
-        try:
-            got, wall, peak = timed(dev, lambda: seeding.
-                                    find_seeds_canonical_dev(
-                                        blk, blk, OverlapConfig(), **kw))
-        finally:
-            seeding._SLICE_CAP = old
-        if got["path"] != ("sliced" if label == "sliced" else "packed"):
-            raise SystemExit(f"chip_smoke: {what}: the {label} run took "
-                             f"the {got['path']} path")
-        bad = [k for k in ("nseeds", "total_seeds", "total_hits")
-               if got[k] != res[k]]
-        bad += [k for k in ("aread", "bread", "apos", "bpos", "cov", "comp")
-                if not torch.equal(got[k], res[k])]
-        if bad:
-            raise SystemExit(f"chip_smoke: {what}: the {label} seeds differ "
-                             f"in {bad}")
-        out[label].append(dict(wall_s=round(wall, 4), peak_bytes=peak))
-        log(f"{what}, {label} seeding: wall {wall:.4f} s, peak device "
-            f"memory {peak / 2**30:.2f} GiB ({peak} B), slices "
-            f"{got.get('slices')}; seeds bit-identical to the plan's "
-            f"({res['nseeds']} of {res['total_seeds']}, total_hits "
-            f"{res['total_hits']}) on {card}")
-        del got
-    return dict(out, unit=what, nseeds=res["nseeds"],
-                total_hits=res["total_hits"])
+    old = seeding._SLICE_CAP
+    seeding._SLICE_CAP = NO_SLICING
+    try:
+        got, wall, peak = timed(dev, lambda: seeding.find_seeds_canonical_dev(
+            blk, blk, OverlapConfig(), **kw))
+    finally:
+        seeding._SLICE_CAP = old
+    if got["path"] != "packed":
+        raise SystemExit(f"chip_smoke: {what}: the unsliced run took the "
+                         f"{got['path']} path")
+    bad = [k for k in ("nseeds", "total_seeds", "total_hits")
+           if got[k] != res[k]]
+    bad += [k for k in ("aread", "bread", "apos", "bpos", "cov", "comp")
+            if not torch.equal(got[k], res[k])]
+    if bad:
+        raise SystemExit(f"chip_smoke: {what}: the unsliced seeds differ "
+                         f"in {bad}")
+    log(f"{what}, unsliced seeding: wall {wall:.4f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} B); seeds bit-identical to the "
+        f"plan's sliced run ({res['nseeds']} of {res['total_seeds']}, "
+        f"total_hits {res['total_hits']}) on {card}")
+    return dict(unit=what, wall_s=round(wall, 4), peak_bytes=peak,
+                nseeds=res["nseeds"], total_hits=res["total_hits"])
 
 
 def legacy_and_bias(dev, card: str) -> dict:
@@ -2465,7 +2494,7 @@ def default_block_phase(dev, card: str) -> dict:
         res["plan"], seeding_kept = default_plan(w, db, dev, card)
         log(f"phase 11b: {time.time() - t0:.1f} s")
         t0 = time.time()
-        res["sliced_vs_unsliced"] = sliced_vs_unsliced(
+        res["unsliced"] = unsliced_again(
             dev, card, seeding_kept["blk"], seeding_kept["kw"],
             seeding_kept["res"], "default block 1 self pair")
         del seeding_kept
@@ -2485,6 +2514,265 @@ def default_block_phase(dev, card: str) -> dict:
     return res
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: the command-line toolbox (damar_tpu_torch.cli), in-process with
+# DAMAR_PLATFORM unset (the card), then as fresh processes
+# ---------------------------------------------------------------------------
+
+# the first launch of each kernel in phase 12a held against its plain
+# version (K4's, lashow -a's one launch, through FirstLaunch)
+CLI_HELD = {"bp_extend_kernel": 1, "bp_trace_kernel": 1,
+            "wide_trace_kernel": 1}
+
+
+def cli_same_as_stages(nblocks: int) -> list:
+    """The files phase 12a's dbdust, datander and overlap-all write that
+    phase 9 wrote through the API with the same settings (the tools'
+    defaults are phase 9's MaskConfig() and OverlapConfig(); phase 9's
+    explicit seeding caps change no byte, port fault 2): the tracks, every
+    pair's file and every merged file."""
+    r = range(1, nblocks + 1)
+    return ([f".RAW.{t}.{e}" for t in ("dust", "tan") for e in ("anno",
+                                                                 "data")]
+            + [f"RAW.{i}.RAW.{j}.las" for i in r for j in r]
+            + [f"RAW.{i}.las" for i in r])
+
+
+def cli(argv: list, walls: dict, name: str | None = None) -> str:
+    """damar_tpu_torch.cli.main(argv) in this process: returns its stdout
+    and puts its wall in walls[name or argv[0]]; exits unless the tool
+    returned 0."""
+    from damar_tpu_torch import cli as cli_mod
+    buf = io.StringIO()
+    code = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli_mod.main([str(a) for a in argv])
+        except SystemExit as e:
+            code = e.code or 0
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    walls[name or argv[0]] = round(time.time() - t0, 4)
+    if code:
+        raise SystemExit(f"chip_smoke: phase 12: `{' '.join(argv)}` exited "
+                         f"{code}: {buf.getvalue()[-400:]}")
+    return buf.getvalue()
+
+
+def same_contigs(a: str, b: str) -> bool:
+    """The same contig sequences in two FASTA files, in any order."""
+    from damar_tpu_torch.formats.fasta import read_fasta
+    key = lambda p: sorted(s.tobytes() for s in read_fasta(p)[1])  # noqa: E731
+    return key(a) == key(b)
+
+
+def cli_stages(w: str, card: str) -> dict:
+    """Phase 12a: the README's sequence of tools and more on a copy of
+    phase 9's DB (w/RAW.db: dbstats, hpc-plan, dbdust, datander, overlap-all
+    -m dust -m tan, lacheck on every merged file, lashow, lashow -a,
+    lastitch -b 1, laq, lagap, lafilter), then ogbuild, ogtour, tour2fasta
+    and assemble on phase 9's FIX DB and filtered file.  The tracks and
+    .las files equal phase 9's; lacheck clean; tour2fasta's contigs
+    assemble's; every kernel of the path launched, the first K1, K2 and
+    K3 launches and lashow -a's one K4 launch held against their plain
+    versions.  Returns each tool's wall and the launches."""
+    c = f"{w}/cli"
+    os.makedirs(c)
+    for f in ("RAW.db", ".RAW.idx", ".RAW.bps"):
+        shutil.copy(f"{w}/{f}", c)
+    db, fdb, flas = f"{c}/RAW.db", f"{w}/FIX.db", f"{w}/FIX.filtered.las"
+    nblocks = dazzdb.DazzDB.open(db).nblocks
+    merged = [f"{c}/RAW.{b}.las" for b in range(1, nblocks + 1)]
+    walls, k4_launches = {}, {}
+    reset_launches()
+    t0 = time.time()
+    with Spy(keep=CLI_HELD) as spy, FirstLaunch() as k4:
+        reads = json.loads(cli(["dbstats", db], walls))["ureads"]
+        plan = cli(["hpc-plan", db], walls)
+        cli(["dbdust", db], walls)
+        cli(["datander", db], walls)
+        cli(["overlap-all", db, "-m", "dust", "-m", "tan"], walls)
+        checked = cli(["lacheck", db, *merged], walls)
+        shown = cli(["lashow", f"{c}/RAW.1.las", "--limit", "50"], walls)
+        k4_launches["before"] = band_align.band_align.launches
+        aligned = cli(["lashow", f"{c}/RAW.1.las", "-a", "--limit", "20",
+                       "--db", db], walls, "lashow -a")
+        k4_launches["lashow -a"] = (band_align.band_align.launches
+                                    - k4_launches.pop("before"))
+        stitched = cli(["lastitch", db, f"{c}/RAW.1.las", "-b", "1", "-o",
+                        f"{c}/stitched.las"], walls)
+        cli(["laq", db, f"{c}/stitched.las"], walls)
+        gaps = cli(["lagap", db, f"{c}/stitched.las"], walls)
+        kept = cli(["lafilter", db, f"{c}/stitched.las", "-o",
+                    f"{c}/filtered.las"], walls)
+        cli(["ogbuild", fdb, flas, f"{c}/graph.graphml"], walls)
+        cli(["ogtour", fdb, flas, f"{c}/tours.json"], walls)
+        cli(["tour2fasta", fdb, f"{c}/tours.json", f"{c}/tours.fasta"],
+            walls)
+        asm = cli(["assemble", fdb, flas, f"{c}/contigs.fasta"], walls)
+    wall = time.time() - t0
+    launches = read_launches()
+    log(f"phase 12a, the command line on the stages unit ({reads} reads): "
+        f"wall {wall:.4f} s; each tool's wall {walls}; launches {launches} "
+        f"on {card}")
+    log(f"phase 12a outputs: lacheck {checked.split()}; lashow "
+        f"{len(shown.splitlines())} lines, lashow -a {len(aligned)} bytes; "
+        f"lastitch: {stitched.strip()}; lagap: "
+        f"{gaps.strip().splitlines()[-1]}; lafilter: {kept.strip()}; "
+        f"assemble: {asm.strip()}")
+    same = cli_same_as_stages(nblocks)
+    differ = [f for f in same
+              if not filecmp.cmp(f"{c}/{f}", f"{w}/{f}", shallow=False)]
+    if differ:
+        raise SystemExit(f"chip_smoke: phase 12a: {differ} differ from "
+                         f"phase 9's files")
+    if [ln.rsplit(": ", 1)[-1] for ln in checked.splitlines()] != \
+            ["OK"] * nblocks:
+        raise SystemExit(f"chip_smoke: phase 12a: lacheck: {checked}")
+    if f"python -m damar_tpu_torch.cli daligner RAW 1 {nblocks}\n" \
+            not in plan:
+        raise SystemExit(f"chip_smoke: phase 12a: hpc-plan rendered no "
+                         f"daligner line for pair 1, {nblocks}")
+    if "|" not in aligned or k4_launches["lashow -a"] != 1:
+        raise SystemExit(f"chip_smoke: phase 12a: lashow -a took "
+                         f"{k4_launches['lashow -a']} K4 launches")
+    if not same_contigs(f"{c}/tours.fasta", f"{c}/contigs.fasta"):
+        raise SystemExit("chip_smoke: phase 12a: tour2fasta's contigs are "
+                         "not assemble's")
+    missing = [k for k in MAIN_PATH + (K4,) if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: kernels not launched by the command "
+                         f"line: {missing}")
+    log(f"phase 12a: {len(same)} files byte-equal to phase 9's (no "
+        f"setting differs: the tools' defaults are phase 9's MaskConfig() "
+        f"and OverlapConfig(); phase 9's explicit caps ({HIT_CAP}, "
+        f"{SEED_CAP}) against overlap-all's sized buffers), lacheck clean, "
+        f"tour2fasta == assemble, lashow -a in one K4 launch")
+    held = hold_first("command line (12a)", spy, CLI_HELD)
+    hold_launches("command line (12a), lashow -a", {K4: [k4.first]})
+    return dict(wall_s=round(wall, 4), tool_walls=walls,
+                launches=launches, held=dict(held, **{K4: 1}),
+                same_as_stages=len(same))
+
+
+def cli_polish(w: str, genome: np.ndarray, card: str) -> dict:
+    """Phase 12b: `assemble --polish` on phase 10b's DB and filtered file:
+    K4's launches and device time (CUDA events around each launch), its
+    first launch there (capped) held against its plain version, and the
+    longest polished contig's k-mer hit rate against the genome above
+    phase 10b's gate (an unpolished contig of these 14%-error reads
+    scores far below it)."""
+    from damar_tpu_torch.formats.fasta import read_fasta
+    from damar_tpu_torch.utils.sim import kmer_hit_rate
+    walls = {}
+    reset_launches()
+    with FirstLaunch() as k4:
+        out = cli(["assemble", f"{w}/FIX.db", f"{w}/FIX.filtered.las",
+                   f"{w}/cli_polished.fasta", "--polish"], walls)
+        k4_ms = k4.device_ms()
+    launches = read_launches()
+    contigs = read_fasta(f"{w}/cli_polished.fasta")[1]
+    lens = [len(x) for x in contigs]
+    hit = kmer_hit_rate(genome, max(contigs, key=len)) if contigs else 0.0
+    res = dict(wall_s=walls["assemble"], launches=launches,
+               k4_launches=launches[K4], k4_device_ms=round(k4_ms, 4),
+               contigs=len(lens), total_bp=sum(lens), lengths=lens[:10],
+               longest_kmer_hit_rate=hit)
+    log(f"phase 12b, assemble --polish on the 300 kbp assembly: {res}; "
+        f"{out.strip()} on {card}")
+    if launches[K4] <= 0 or k4.first is None:
+        raise SystemExit(f"chip_smoke: phase 12b: {launches[K4]} K4 "
+                         f"launches")
+    hold_launches("command line (12b), assemble --polish", {K4: [k4.first]})
+    if hit <= 0.45:
+        raise SystemExit(f"chip_smoke: phase 12b: the longest polished "
+                         f"contig's k-mer hit rate {hit:.4f} <= 0.45")
+    return dict(res, held={K4: 1})
+
+
+def cli_pipeline(base: str, card_w: str) -> dict:
+    """Phase 12c: the `pipeline` tool on the 12 kbp genome (phase 10c's
+    reads and settings): CONTIGS.fasta byte-equal to phase 10c's
+    run_pipeline on the card."""
+    walls = {}
+    reset_launches()
+    out = cli(["pipeline", f"{card_w}/reads.fasta", f"{base}/cli", "-s",
+               "1", "-x", "500"], walls)
+    launches = read_launches()
+    if not filecmp.cmp(f"{base}/cli/CONTIGS.fasta",
+                       f"{card_w}/CONTIGS.fasta", shallow=False):
+        raise SystemExit("chip_smoke: phase 12c: the pipeline tool's "
+                         "CONTIGS.fasta differs from run_pipeline's")
+    res = dict(wall_s=walls["pipeline"], launches=launches,
+               contigs=json.loads(out.splitlines()[-1])["contigs"])
+    log(f"phase 12c, the pipeline tool on the 12 kbp genome: {res}; "
+        f"CONTIGS.fasta byte-equal to phase 10c's")
+    return res
+
+
+def cli_fresh(base: str, card_w: str) -> dict:
+    """Phase 12d: a rendered hpc-plan daligner line run as-is by a shell,
+    as a fresh process, in a directory holding a copy of phase 10c's DB:
+    with DAMAR_PLATFORM unset it writes the in-process daligner's file;
+    with no card visible (CUDA_VISIBLE_DEVICES empty) it exits non-zero
+    and names the missing card, writing nothing; with DAMAR_PLATFORM=cpu
+    it writes the same bytes."""
+    d = f"{base}/plan"
+    os.makedirs(d)
+    for f in ("RAW.db", ".RAW.idx", ".RAW.bps"):
+        shutil.copy(f"{card_w}/{f}", d)
+    walls = {}
+    reset_launches()
+    cli(["daligner", f"{d}/RAW.db", "1", "1", "-o", f"{base}/inproc.las"],
+        walls)
+    launches = read_launches()
+    lines = cli(["hpc-plan", f"{d}/RAW.db"], walls).splitlines()
+    script = "\n".join([lines[1], next(
+        ln for ln in lines
+        if ln.startswith("python -m damar_tpu_torch.cli daligner ")
+        and "#" not in ln)]) + "\n"
+    # the rendered line calls `python`: here, the interpreter running this
+    # script (a wrapper that execs it by its own path, so a virtual
+    # environment's packages stay found)
+    bindir = f"{base}/bin"
+    os.makedirs(bindir)
+    with open(f"{bindir}/python", "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(f"{bindir}/python", 0o755)
+    env0 = {k: v for k, v in os.environ.items()
+            if k not in ("DAMAR_PLATFORM", "PYTHONPATH")}
+    env0["PATH"] = f"{bindir}:{env0.get('PATH', '')}"
+    out = f"{d}/RAW.1.RAW.1.las"
+    res = {}
+    for label, extra in (("card", {}), ("no card", {
+            "CUDA_VISIBLE_DEVICES": ""}), ("cpu", {"DAMAR_PLATFORM": "cpu"})):
+        if os.path.exists(out):
+            os.remove(out)
+        t0 = time.time()
+        r = subprocess.run(["bash", "-c", script], cwd=d,
+                           env=dict(env0, **extra), capture_output=True,
+                           text=True, timeout=600)
+        res[label] = dict(rc=r.returncode, wall_s=round(time.time() - t0, 4))
+        if label == "no card":
+            if (r.returncode == 0 or "no CUDA device" not in r.stderr
+                    or os.path.exists(out)):
+                raise SystemExit(f"chip_smoke: phase 12d: with no card "
+                                 f"visible the line gave rc {r.returncode}"
+                                 f": {r.stderr[-400:]}")
+            res[label]["stderr"] = r.stderr.strip().splitlines()[-1]
+        elif r.returncode or not filecmp.cmp(out, f"{base}/inproc.las",
+                                             shallow=False):
+            raise SystemExit(f"chip_smoke: phase 12d: the rendered line "
+                             f"({label}) gave rc {r.returncode} or another "
+                             f"file: {r.stderr[-400:]}")
+    log(f"phase 12d, the rendered line `{script.splitlines()[-1]}` in a "
+        f"fresh process: {res}; the card's and the CPU's file byte-equal "
+        f"to the in-process daligner's")
+    return dict(fresh=res, launches=launches, inproc_wall_s=walls["daligner"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--passes", type=int, default=1,
@@ -2502,6 +2790,8 @@ def main(argv=None) -> int:
                          "is_available() is False); nothing was run")
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # phase 12's tools take the card when DAMAR_PLATFORM is unset
+    os.environ.pop("DAMAR_PLATFORM", None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2737,6 +3027,10 @@ def main(argv=None) -> int:
         staged["phase7"] = assemble_stages(w, dev, card,
                                            staged.pop("genome_bp"))
         log(f"phase 10a: {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        cli_run = {"stages": cli_stages(w, card)}
+        log(f"phase 12a: {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(w, ignore_errors=True)
     for r in rows:
@@ -2748,6 +3042,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     asm = assembly_phase(dev, card, sass)
     log(f"phase 10b: {time.time() - t0:.1f} s")
+    cli_run["polish"] = asm.pop("cli_polish")
     row, launches_asm = k4_row(asm, errs, sass, card)
     for r in rows:
         r["assembly_launches"] = launches_asm[r["name"]]
@@ -2756,7 +3051,17 @@ def main(argv=None) -> int:
     # ---- a tiny assembly on the card and on the CPU path ----
     t0 = time.time()
     asm["tiny"] = assembly_tiny(dev)
-    log(f"phase 10c: {asm['tiny']} ({time.time() - t0:.1f} s)")
+    cli_run.update(asm["tiny"].pop("cli"))
+    log(f"phases 10c, 12c, 12d: {asm['tiny']} ({time.time() - t0:.1f} s)")
+    # each kernel's launches over phase 12's in-process tools
+    cli_launches = {k: sum(cli_run[p]["launches"][k] for p in (
+        "stages", "polish", "pipeline")) + cli_run["fresh"]["launches"][k]
+        for k in KERNELS}
+    for r in rows:
+        r["cli_launches"] = cli_launches[r["name"]]
+    for p in ("stages", "polish", "pipeline", "fresh"):
+        cli_run[p]["launches"] = {k: v for k, v in
+                                  cli_run[p]["launches"].items() if v}
 
     # ---- the pipeline's default 200 Mbp block, the legacy payload path
     # and -b ----
@@ -2772,6 +3077,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows, "wide_retry_routes": routes,
                       "wide_route": wide, "sweep": swept, "stages": staged,
                       "assembly": asm, "default_block": default,
+                      "cli": cli_run,
                       "profiler_lost_launches": LOST_LAUNCHES}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

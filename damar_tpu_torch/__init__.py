@@ -8,15 +8,18 @@ The package imports torch and numpy and never jax: the JAX package
 port is held against, bit for bit.
 
 Layer map (the same layout and names as damar_tpu):
+  cli.py     — the command-line toolbox, python -m damar_tpu_torch.cli
   core/      — OverlapConfig, the ReadBlock layout (numpy)
-  formats/   — FASTA, the read database (.db/.idx/.bps), tracks, .las
-               columns: writer, reader, sort, merge, check_las (numpy)
+  formats/   — FASTA/FASTQ, the read database (.db/.idx/.bps) and its
+               .qvs qualities, tracks, .las as columns or Overlap objects:
+               writer, reader, sort, merge, check_las, show (numpy)
   utils/     — the read simulator (same reads from the same seed)
   ops/       — torch ops for seeding, sorts and packed words; the three
                hand-written CUDA kernels (csrc/) behind their wrappers
   pipeline/  — overlap_block_pair, the pipelined pairs, and the block
                sweep run_overlap_plan
-  parallel/  — the pair matrix and its split over hosts
+  parallel/  — the pair matrix, its split over hosts and the launcher's
+               host index
 
 Kernels: each wrapper launches its CUDA kernel for a CUDA tensor and
 takes its plain torch version only for a CPU tensor.  There is no

@@ -260,18 +260,23 @@ def create_db(path: str, fasta_paths: list[str]) -> DazzDB:
     """FASTA file(s) -> .db stub + .idx + .bps (fasta2DB equivalent).
 
     Reads are appended in file order; origin = well/ordinal within file,
-    fpulse = 0 (no pulse metadata for plain FASTA).  FASTQ input raises:
-    the reference stores its qualities in a .qvs file, whose codec
-    (formats/qv.py, qv_huff.py) is not ported, and dropping them
-    silently would write a different database.
+    fpulse = 0 (no pulse metadata for plain FASTA).  FASTQ files
+    (.fastq/.fq, optionally gzipped) may be mixed in: when any read has
+    qualities, they go to the .qvs file (formats.qv.fastq_to_qvs; a FASTA
+    read's stream is empty).
     """
-    from damar_tpu_torch.formats.fasta import iter_fasta
+    from damar_tpu_torch.formats.fasta import iter_fasta, iter_fastq
 
-    for fp in fasta_paths:
+    def records_of(fp):
         if fp.endswith((".fastq", ".fq", ".fastq.gz", ".fq.gz")):
-            raise NotImplementedError(
-                f"{fp}: FASTQ qualities need the .qvs codec, which is "
-                "not ported; convert to FASTA first")
+            for h, codes, q in iter_fastq(fp):
+                yield h, codes, q
+        else:
+            for h, codes in iter_fasta(fp):
+                yield h, codes, None
+
+    quals: list = []
+    any_quals = False
     recs = []
     files: list[tuple[int, str, str]] = []
     bps_chunks: list[np.ndarray] = []
@@ -282,7 +287,9 @@ def create_db(path: str, fasta_paths: list[str]) -> DazzDB:
     for fp in fasta_paths:
         prolog = ""
         n_in_file = 0
-        for header, codes in iter_fasta(fp):
+        for header, codes, q in records_of(fp):
+            quals.append(q if q is not None else np.zeros(0, np.uint8))
+            any_quals = any_quals or q is not None
             if not prolog:
                 prolog = header.split()[0]
             rlen = len(codes)
@@ -323,6 +330,9 @@ def create_db(path: str, fasta_paths: list[str]) -> DazzDB:
         for ch in bps_chunks:
             f.write(ch.tobytes())
     _write_stub(path, files, None, None, DEFAULT_BLOCK_MB, 0, 1)
+    if any_quals:
+        from damar_tpu_torch.formats.qv import fastq_to_qvs
+        fastq_to_qvs(path, quals)
     return DazzDB.open(path)
 
 

@@ -12,26 +12,67 @@ The trace array holds one (diffs, b_bases_spanned) pair per trace-point
 segment; segments are delimited by absolute multiples of tspace in A.
 Records are sorted by (aread, bread, COMP bit, abpos, aepos, bbpos).
 
-This is the columnar subset of damar_tpu.formats.las that the overlap
-pipeline, the block sweep, masking and scrub emit, read, merge and check;
-it writes the same bytes.  The per-record Overlap objects,
-reconstruct_alignment and show_las are not ported yet (no ported stage
-needs them).
+Two representations coexist, as in damar_tpu.formats.las, and write the
+same bytes:
+
+  * `Overlap` objects (one per record), the API the command-line tools
+    and the object forms of the pile tools read and mutate;
+  * `LasColumns`, a struct-of-arrays form (headers [n,10] int32 in file
+    record order, the raw file-encoded trace bytes and byte offsets), used
+    by the block-scale paths (overlap emission, sort, merge, file IO).
+
+`LasFile` holds either: a columnar file materializes Overlap objects on
+first `.overlaps` access and drops the columns (the objects may then be
+mutated).  reconstruct_alignments renders the base-level alignment of
+records (LAshow -a) with every trace segment of every record aligned in
+one pile-aligner call (K4 on the card).
 """
 from __future__ import annotations
 
 import os
 import struct
+from dataclasses import dataclass, field
 
 import numpy as np
 
-from damar_tpu_torch.formats.oflags import OVL_COMP
+from damar_tpu_torch.formats.oflags import OVL_COMP, flag_str
 
 TRACE_XOVR = 125
 
 # header column indices (int32 view of the 40-byte record)
 H_TLEN, H_DIFFS, H_ABPOS, H_BBPOS, H_AEPOS, H_BEPOS = range(6)
 H_FLAGS, H_AREAD, H_BREAD, H_PAD = 6, 7, 8, 9
+
+
+@dataclass
+class Overlap:
+    aread: int
+    bread: int
+    flags: int
+    abpos: int
+    aepos: int
+    bbpos: int
+    bepos: int
+    diffs: int
+    trace: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 2), np.int32))
+    # trace: (nseg, 2) int array of (diffs, bspan) per segment
+
+    @property
+    def comp(self) -> bool:
+        return bool(self.flags & OVL_COMP)
+
+    def alen(self) -> int:
+        return self.aepos - self.abpos
+
+    def blen(self) -> int:
+        return self.bepos - self.bbpos
+
+    def __repr__(self):
+        return (f"Overlap(a={self.aread} b={self.bread}"
+                f"{'c' if self.comp else 'n'} "
+                f"A[{self.abpos},{self.aepos}) B[{self.bbpos},{self.bepos}) "
+                f"d={self.diffs} [{flag_str(self.flags)}])")
 
 
 def _gather_ragged(trace: np.ndarray, starts: np.ndarray,
@@ -147,40 +188,128 @@ def _decode_trace(raw: np.ndarray, small: bool) -> np.ndarray:
     return raw.view("<i2").astype(np.int32).reshape(-1, 2)
 
 
-class LasFile:
-    """A set of .las records in columnar form."""
+def _columns_to_overlaps(cols: LasColumns, small: bool) -> list[Overlap]:
+    h = cols.headers
+    offs = cols.offsets
+    tr = cols.trace
+    return [Overlap(
+        aread=int(h[i, H_AREAD]), bread=int(h[i, H_BREAD]),
+        flags=int(np.uint32(h[i, H_FLAGS])),
+        abpos=int(h[i, H_ABPOS]), aepos=int(h[i, H_AEPOS]),
+        bbpos=int(h[i, H_BBPOS]), bepos=int(h[i, H_BEPOS]),
+        diffs=int(h[i, H_DIFFS]),
+        trace=_decode_trace(tr[offs[i]:offs[i + 1]], small))
+        for i in range(cols.n)]
 
-    def __init__(self, tspace: int, columns: LasColumns | None = None):
+
+def _overlaps_to_columns(ovls: list[Overlap], small: bool) -> LasColumns:
+    n = len(ovls)
+    headers = np.zeros((n, 10), np.int32)
+    lens = np.zeros(n, np.int64)
+    traces = []
+    for i, o in enumerate(ovls):
+        t = np.asarray(o.trace, dtype=np.int32).reshape(-1, 2)
+        traces.append(t)
+        lens[i] = t.shape[0]
+        headers[i, :9] = (2 * t.shape[0], o.diffs, o.abpos, o.bbpos,
+                          o.aepos, o.bepos,
+                          np.uint32(o.flags).view(np.int32),
+                          o.aread, o.bread)
+    rows = (np.concatenate(traces) if traces
+            else np.zeros((0, 2), np.int32))
+    seg_off = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=seg_off[1:])
+    payload, offs = encode_trace_columns(rows, seg_off, small)
+    return LasColumns(headers, payload, offs)
+
+
+class LasFile:
+    """A set of .las records: columnar or object-backed.
+
+    Construct with `overlaps=` (a list of Overlap) or `columns=`
+    (LasColumns).  `.overlaps` materializes objects from the columns on
+    first access and drops the columns (the objects may be mutated);
+    `.columns` is the columnar form while it is authoritative, else
+    None."""
+
+    def __init__(self, tspace: int, overlaps: list[Overlap] | None = None,
+                 columns: LasColumns | None = None):
         self.tspace = int(tspace)
-        self.columns = columns if columns is not None \
-            else LasColumns.empty()
+        if overlaps is None and columns is None:
+            overlaps = []
+        self._overlaps = overlaps
+        self._columns = columns if overlaps is None else None
 
     @property
     def small(self) -> bool:
         return self.tspace <= TRACE_XOVR
 
     @property
+    def columns(self) -> LasColumns | None:
+        return self._columns
+
+    @property
+    def overlaps(self) -> list[Overlap]:
+        if self._overlaps is None:
+            self._overlaps = _columns_to_overlaps(self._columns, self.small)
+            self._columns = None
+        return self._overlaps
+
+    @overlaps.setter
+    def overlaps(self, v: list[Overlap]) -> None:
+        self._overlaps = v
+        self._columns = None
+
+    @property
     def novl(self) -> int:
-        return self.columns.n
+        if self._columns is not None:
+            return self._columns.n
+        return len(self._overlaps)
 
     def a_spans(self) -> np.ndarray:
-        """A-interval lengths per record."""
-        return self.columns.a_spans()
+        """A-interval lengths per record (no materialization)."""
+        if self._columns is not None:
+            return self._columns.a_spans()
+        return np.array([o.aepos - o.abpos for o in self._overlaps],
+                        np.int64)
 
     def sort(self) -> None:
         """LAsort order: (aread, bread, comp, abpos, aepos, bbpos)."""
-        self.columns = self.columns.permute(self.columns.sort_order())
+        if self._columns is not None:
+            self._columns = self._columns.permute(
+                self._columns.sort_order())
+            return
+        self._overlaps.sort(
+            key=lambda o: (o.aread, o.bread, o.flags & OVL_COMP, o.abpos,
+                           o.aepos, o.bbpos))
 
     @staticmethod
     def concat(parts: list["LasFile"]) -> "LasFile":
-        """Concatenate record sets in the order given."""
+        """Concatenate record sets in the order given: columnar when every
+        part with records still is, else objects (which materializes the
+        columnar parts)."""
         if not parts:
-            return LasFile(tspace=100)
+            return LasFile(tspace=100, overlaps=[])
         ts = {p.tspace for p in parts if p.novl} or {parts[0].tspace}
         if len(ts) != 1:
             raise ValueError(f"mixed tspace values {ts}")
-        return LasFile(ts.pop(), columns=LasColumns.concat(
-            [p.columns for p in parts]))
+        tspace = ts.pop()
+        if all(p._columns is not None or not p.novl for p in parts):
+            return LasFile(tspace, columns=LasColumns.concat(
+                [p._columns for p in parts if p._columns is not None]))
+        allov: list[Overlap] = []
+        for p in parts:
+            allov.extend(p.overlaps)
+        return LasFile(tspace, overlaps=allov)
+
+
+def columns_of(las: LasFile) -> LasColumns:
+    """The columns of a las: its own, or one build pass over its objects
+    (the file stays object-backed)."""
+    c = las.columns
+    if c is None:
+        c = _overlaps_to_columns(las.overlaps, las.small)
+    return c
 
 
 def n_segments(abpos: int, aepos: int, tspace: int) -> int:
@@ -192,8 +321,9 @@ def n_segments(abpos: int, aepos: int, tspace: int) -> int:
 
 def write_las(path: str, las: LasFile, _chunk: int = 1 << 25) -> None:
     """Bulk columnar writer: assembles the file image in bounded record
-    chunks (interleaved header/payload scatter per chunk)."""
-    cols = las.columns
+    chunks (interleaved header/payload scatter per chunk); an
+    object-backed file is encoded to columns first."""
+    cols = columns_of(las)
     n = cols.n
     lens = np.diff(cols.offsets)
     hdr = np.ascontiguousarray(cols.headers).view(np.uint8) \
@@ -278,10 +408,14 @@ def check_las(las: LasFile, rlen_a, rlen_b=None, sorted_order: bool = True,
     coordinate bounds, trace segment count, trace b-span and diffs
     consistency, per-segment diffs >= |aspan - bspan|, sort order.
     rlen_a/rlen_b map absolute read id -> length (b defaults to a).
-    Returns a list of problem strings (empty = clean)."""
+    Returns a list of problem strings (empty = clean).  Validation is
+    vectorized over the columns; an object-backed file is checked through
+    its columns (one build pass, which raises ValueError on a trace
+    value the file cannot hold, as write_las does), so its problems read
+    as those of the same records read from a file."""
     if rlen_b is None:
         rlen_b = rlen_a
-    cols = las.columns
+    cols = columns_of(las)
     tspace = las.tspace
     errs: list[str] = []
     h = cols.headers
@@ -378,3 +512,83 @@ def merge_las(paths: list[str], out: str) -> None:
 
 def cat_las(paths: list[str], out: str) -> None:
     write_las(out, LasFile.concat([read_las(p) for p in paths]))
+
+
+# --- display (LAshow equivalents) -------------------------------------------
+
+def reconstruct_alignments(records: list, tspace: int, width: int = 80, *,
+                           device) -> list[str]:
+    """Render the base-level alignment of each record from its trace
+    points (LAshow -a): each trace segment is aligned again, globally,
+    with a band of max(32, diffs + 8) (the trace gives the spans and the
+    diffs).  records: [(Overlap, aseq, bseq)], the A read's codes and the
+    B read's, already complemented when the record has the COMP flag.
+    Every segment of every record goes through one pile-aligner call
+    (ops.band_align.align_pairs: K4 on a CUDA device, its plain version
+    on the CPU); each pair is aligned on its own, so the paths are those
+    of one call per segment."""
+    from damar_tpu_torch.formats.fasta import decode_seq
+    from damar_tpu_torch.ops.band_align import align_pairs
+    segs, pairs = [], []
+    for o, aseq, bseq in records:
+        a0, b0 = o.abpos, o.bbpos
+        rs = []
+        for d, bspan in np.asarray(o.trace, dtype=np.int64):
+            a1 = min((a0 // tspace + 1) * tspace, o.aepos)
+            aw, bw = aseq[a0:a1], bseq[b0:b0 + bspan]
+            rs.append((aw, bw))
+            pairs.append((aw, bw, max(32, int(d) + 8)))
+            a0, b0 = a1, b0 + int(bspan)
+        segs.append(rs)
+    aligned = iter(align_pairs(pairs, semiglobal=False, device=device))
+    out = []
+    for rs in segs:
+        top, mid, bot = [], [], []
+        for aw, bw in rs:
+            ops, j = next(aligned)
+            i = 0
+            for op in ops:
+                if op == 0:
+                    top.append(decode_seq(aw[i:i + 1]))
+                    bot.append(decode_seq(bw[j:j + 1]))
+                    mid.append("|" if aw[i] == bw[j] else "*")
+                    i += 1
+                    j += 1
+                elif op == 1:
+                    top.append(decode_seq(aw[i:i + 1]))
+                    bot.append("-")
+                    mid.append(" ")
+                    i += 1
+                else:
+                    top.append("-")
+                    bot.append(decode_seq(bw[j:j + 1]))
+                    mid.append(" ")
+                    j += 1
+        lines = []
+        t, m, b = "".join(top), "".join(mid), "".join(bot)
+        for k in range(0, len(t), width):
+            lines.append(f"  A {t[k:k + width]}")
+            lines.append(f"    {m[k:k + width]}")
+            lines.append(f"  B {b[k:k + width]}")
+            lines.append("")
+        out.append("\n".join(lines))
+    return out
+
+
+def reconstruct_alignment(o: Overlap, aseq, bseq, tspace: int,
+                          width: int = 80, *, device) -> str:
+    """reconstruct_alignments of one record."""
+    return reconstruct_alignments([(o, aseq, bseq)], tspace, width,
+                                  device=device)[0]
+
+
+def show_las(las: LasFile, limit: int | None = None) -> str:
+    """Human-readable dump (LAshow header lines)."""
+    lines = []
+    for o in las.overlaps[:limit]:
+        c = "c" if o.comp else "n"
+        lines.append(
+            f"{o.aread:7d} {o.bread:7d} {c} "
+            f"[{o.abpos:7d}..{o.aepos:7d}] x [{o.bbpos:7d}..{o.bepos:7d}] "
+            f"( {o.diffs} diffs, {len(o.trace)} tps )")
+    return "\n".join(lines)

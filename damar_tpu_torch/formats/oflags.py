@@ -17,3 +17,16 @@ OVL_REPEAT = 0x200    # repeat-induced (no unique anchor)
 OVL_OLEN = 0x400      # failed overlap-length filter
 OVL_RLEN = 0x800      # failed read-length filter
 OVL_TEMP = 0x1000     # transient marker used inside tools
+
+FLAG_NAMES = {
+    OVL_COMP: "comp", OVL_ACOMP: "acomp", OVL_DISCARD: "discard",
+    OVL_SYMDISCARD: "symdiscard", OVL_LOCAL: "local", OVL_CONT: "cont",
+    OVL_STITCH: "stitch", OVL_TRIM: "trim", OVL_GAP: "gap",
+    OVL_REPEAT: "repeat", OVL_OLEN: "olen", OVL_RLEN: "rlen",
+    OVL_TEMP: "temp",
+}
+
+
+def flag_str(flags: int) -> str:
+    """The names of the set bits, comma-separated ("-" when none)."""
+    return ",".join(n for b, n in FLAG_NAMES.items() if flags & b) or "-"

@@ -31,7 +31,7 @@ import numpy as np
 from damar_tpu_torch.formats.fasta import revcomp
 from damar_tpu_torch.formats.las import (H_ABPOS, H_AEPOS, H_AREAD, H_BBPOS,
                                          H_BEPOS, H_BREAD, H_FLAGS,
-                                         _decode_trace)
+                                         _decode_trace, columns_of)
 from damar_tpu_torch.formats.oflags import OVL_COMP, OVL_DISCARD
 from damar_tpu_torch.ops.band_align import align_pairs
 from damar_tpu_torch.pipeline.poa import poa_consensus
@@ -39,6 +39,40 @@ from damar_tpu_torch.pipeline.poa import poa_consensus
 # correct_reads: the (sub-template, cover) pairs of one K4 launch, about
 # (whole reads are gathered until a group reaches it)
 CORRECT_PAIRS = 4096
+
+
+def _ops_to_path(ops: np.ndarray, jstart: int
+                 ) -> list[tuple[int, int, int]]:
+    path = []
+    i, j = 0, jstart
+    for op in ops:
+        if op == 0:
+            path.append((0, i, j))
+            i += 1
+            j += 1
+        elif op == 1:
+            path.append((1, i, j))
+            i += 1
+        else:
+            path.append((2, i, j))
+            j += 1
+    return path
+
+
+def banded_align_path(a: np.ndarray, b: np.ndarray, band: int = 64,
+                      semiglobal: bool = True, *, device
+                      ) -> list[tuple[int, int, int]]:
+    """Banded edit alignment of a (template) vs b; returns the path as
+    (op, i, j) triples: 0 = match/sub consuming a[i], b[j]; 1 = del
+    consuming a[i]; 2 = ins consuming b[j].
+
+    semiglobal: leading/trailing b overhangs are free (b may extend past
+    the template on both sides without cost), so the path covers all of a
+    but only the aligned span of b.  One pair through the pile aligner
+    (K4 on a CUDA device, its plain version on the CPU), which gives
+    damar_tpu's host C band_align's path, the aligner its pipeline runs."""
+    (ops, jstart), = align_pairs([(a, b, band)], semiglobal, device=device)
+    return _ops_to_path(ops, jstart)
 
 
 def _new_votes(m: int) -> tuple[np.ndarray, list[dict]]:
@@ -254,6 +288,17 @@ def _msa_window_calls(template: np.ndarray, items: list,
     return out
 
 
+def recruit_layout(contig: np.ndarray, nreads: int, seq_of,
+                   k: int = 16, min_hits: int = 15, bin_: int = 64,
+                   circular: bool = False
+                   ) -> list[tuple[int, int, int]]:
+    """recruit_layout_multi for one contig: every read placed on the
+    draft by exact-k-mer modal diagonal voting, no .las needed."""
+    return recruit_layout_multi([contig], nreads, seq_of, k=k,
+                                min_hits=min_hits, bin_=bin_,
+                                circulars=[circular])[0]
+
+
 def recruit_layout_multi(contigs: list[np.ndarray], nreads: int,
                          seq_of, k: int = 16, min_hits: int = 15,
                          bin_: int = 64,
@@ -361,6 +406,22 @@ def _kmer_ints(codes: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
+def finish_polish_raw(contig: np.ndarray, nreads: int, seq_of,
+                      circular: bool = False, window: int = 500,
+                      margin: int = 80, band: int = 96,
+                      min_cov: int = 2, rounds: int = 4, *,
+                      device) -> np.ndarray:
+    """finish_polish_raw_multi for one contig: recruit the original reads
+    onto the polished draft (recruit_layout) and run the MSA-called vote
+    rounds, their alignments on `device`."""
+    cur = contig
+    if not len(cur) or rounds <= 0:
+        return cur
+    lay = recruit_layout(cur, nreads, seq_of, circular=circular)
+    return _finish_rounds(cur, lay, seq_of, circular, window, margin,
+                          band, min_cov, rounds, device)
+
+
 def finish_polish_raw_multi(contigs: list[np.ndarray],
                             circulars: list[bool], nreads: int,
                             seq_of, window: int = 500,
@@ -458,12 +519,12 @@ def full_layout(tour_lay: list[tuple[int, int, int]], las,
     placed at the contig position implied by its best (longest)
     overlap record with a tour read.  Positions are approximate to
     within alignment indel drift — polish margins absorb that.  An
-    empty file adds nothing; a LasFile without columns (the reference's
-    per-record objects) raises NotImplementedError."""
+    object-backed file is read through its columns (one build pass)."""
     pos = {(r, d): p for r, d, p in tour_lay}
     placed = {r for r, _, _ in tour_lay}
-    cols = getattr(las, "columns", None)
-    if cols is not None and cols.n:
+    cols = columns_of(las)
+    rows = ()
+    if cols.n:
         # columnar pre-filter: only records pairing an unplaced bread
         # with a placed aread survive to the Python placement loop
         h = cols.headers
@@ -478,12 +539,6 @@ def full_layout(tour_lay: list[tuple[int, int, int]], las,
                  int(h[i, H_ABPOS]), int(h[i, H_AEPOS]),
                  int(h[i, H_BBPOS]), int(h[i, H_BEPOS]),
                  1 if h[i, H_FLAGS] & OVL_COMP else 0) for i in idx)
-    elif cols is None and len(getattr(las, "overlaps", ())):
-        raise NotImplementedError(
-            "full_layout over per-record .las objects: the .las object "
-            "API is not ported (ROADMAP.md §1 item 6)")
-    else:
-        rows = ()
     best: dict[int, tuple[int, int, int]] = {}
     for aread, bread, abpos, aepos, bbpos, bepos, comp in rows:
         alen = rlen_of[aread]
@@ -989,15 +1044,48 @@ def _correct_vote(template: np.ndarray, wins: list, aligned, rlen: int,
     return out, (raw_b.astype(np.float64), cor_b.astype(np.float64))
 
 
+def _piles(las, want, discarded: bool) -> dict[int, list]:
+    """The pile of each A read of `las` (all, or those in `want`): its
+    records' (bread, comp, abpos, aepos, bbpos, cumulative B span at each
+    trace point) in file order, with or without the discarded records.
+    One pass over the columns (an object-backed file's: one build
+    pass)."""
+    cols = columns_of(las)
+    piles: dict[int, list] = {}
+    if not cols.n:
+        return piles
+    h = cols.headers
+    rows_t = _decode_trace(cols.trace, las.small)
+    seg_off = cols.offsets // (2 if las.small else 4)
+    keep = np.ones(cols.n, bool) if discarded else \
+        (h[:, H_FLAGS] & OVL_DISCARD) == 0
+    if want is not None:
+        keep &= np.isin(h[:, H_AREAD], np.fromiter(want, np.int64))
+    idx = np.flatnonzero(keep)
+    for i in idx[np.argsort(h[idx, H_AREAD], kind="stable")]:
+        tr = rows_t[seg_off[i]:seg_off[i + 1]]
+        cum = np.concatenate([[0], np.cumsum(tr[:, 1])])
+        piles.setdefault(int(h[i, H_AREAD]), []).append(
+            (int(h[i, H_BREAD]), bool(h[i, H_FLAGS] & OVL_COMP),
+             int(h[i, H_ABPOS]), int(h[i, H_AEPOS]),
+             int(h[i, H_BBPOS]), cum))
+    return piles
+
+
 def polish_read(aread: int, las, seqs_of, rlen: int, window: int = 500,
                 band: int = 96, min_cov: int = 2, *, device) -> np.ndarray:
-    """Correct one read from its pile: damar_tpu's polish_read scans the
-    per-record .las objects, which are not ported (ROADMAP.md §1 item
-    6); correct_reads(reads=[aread]) gives the same read from the
-    columns."""
-    raise NotImplementedError(
-        "polish_read needs the per-record .las object API, which is not "
-        "ported (ROADMAP.md §1 item 6); use correct_reads(reads=[aread])")
+    """Correct one read from its pile (corrector equivalent): the
+    covering B windows are located through trace points, then
+    consensus-voted against the read as template.  The pile is every
+    record of `aread` in las (discarded ones too, as in damar_tpu); its
+    alignments go through one K4 launch on `device`."""
+    template = seqs_of(aread, False)
+    pile = _piles(las, {aread}, discarded=True).get(aread, [])
+    wins, pairs = _correct_plan(template, pile, seqs_of, rlen, las.tspace,
+                                window, band)
+    return _correct_vote(template, wins,
+                         iter(align_pairs(pairs, device=device)), rlen,
+                         window, min_cov)
 
 
 def correct_reads(las, seqs_of, rlen_of: dict[int, int],
@@ -1014,36 +1102,11 @@ def correct_reads(las, seqs_of, rlen_of: dict[int, int],
     a-side trace coordinates stay valid; b-side slices translate
     through each cover's window-boundary map).
 
-    Columnar pile construction: one pass over the las groups rows by
-    aread (no per-record objects).  A LasFile without columns (the
-    reference's per-record objects) raises NotImplementedError."""
-    cols = getattr(las, "columns", None)
-    if cols is None and len(getattr(las, "overlaps", ())):
-        raise NotImplementedError(
-            "correct_reads over per-record .las objects: the .las object "
-            "API is not ported (ROADMAP.md §1 item 6)")
+    Columnar pile construction (_piles): one pass over the las groups
+    rows by aread (no per-record objects)."""
     ts = las.tspace
-    want = None if reads is None else set(reads)
-    piles: dict[int, list] = {}
-    if cols is not None and cols.n:
-        h = cols.headers
-        rows_t = _decode_trace(cols.trace, las.small)
-        seg_off = cols.offsets // (2 if las.small else 4)
-        live = (h[:, H_FLAGS] & OVL_DISCARD) == 0
-        order = np.argsort(h[:, H_AREAD], kind="stable")
-        for i in order:
-            if not live[i]:
-                continue
-            a = int(h[i, H_AREAD])
-            if want is not None and a not in piles and a not in want:
-                continue
-            tr = rows_t[seg_off[i]:seg_off[i + 1]]
-            cum = np.concatenate([[0], np.cumsum(tr[:, 1])])
-            piles.setdefault(a, []).append(
-                (int(h[i, H_BREAD]),
-                 bool(h[i, H_FLAGS] & OVL_COMP),
-                 int(h[i, H_ABPOS]), int(h[i, H_AEPOS]),
-                 int(h[i, H_BBPOS]), cum))
+    piles = _piles(las, None if reads is None else set(reads),
+                   discarded=False)
     targets = sorted(piles) if reads is None else \
         [r for r in reads if r in piles]
     out: dict[int, np.ndarray] = {}

@@ -8,10 +8,9 @@ advance length.  One edge is emitted per proper right-dovetail record;
 the mirrored .las records supply the twin edges.
 
 Containment removal and Myers-style transitive reduction happen here;
-touring/bubble/spur logic lives in pipeline.touring.  Only the columnar
-form of build_graph is ported (the port's LasFile is columnar); the
-dict and set containers are the reference's, whose iteration order the
-tour depends on.
+touring/bubble/spur logic lives in pipeline.touring.  The dict and set
+containers are the reference's, whose iteration order the tour depends
+on.
 """
 from __future__ import annotations
 
@@ -21,7 +20,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from damar_tpu_torch.formats.las import (H_ABPOS, H_AEPOS, H_AREAD, H_BBPOS,
-                                         H_BEPOS, H_BREAD, H_FLAGS)
+                                         H_BEPOS, H_BREAD, H_FLAGS,
+                                         columns_of)
 from damar_tpu_torch.formats.oflags import OVL_COMP, OVL_DISCARD
 
 
@@ -103,18 +103,13 @@ def build_graph(las, rlen_of: dict[int, int], fuzz: int = 25,
 
     Only records without DISCARD flags contribute.  Contained reads
     (fully covered by another read) are dropped with all their edges.
-    An empty file gives the empty graph; a LasFile without columns (the
-    reference's per-record objects) raises NotImplementedError.
+    An object-backed file is read through its columns (one build pass).
     """
     g = StringGraph()
-    cols = getattr(las, "columns", None)
-    if cols is not None and cols.n:
+    cols = columns_of(las)
+    if cols.n:
         return _build_graph_columnar(g, cols, rlen_of, fuzz,
                                      min_dovetail)
-    if cols is None and len(getattr(las, "overlaps", ())):
-        raise NotImplementedError(
-            "build_graph over per-record .las objects: the .las object "
-            "API is not ported (ROADMAP.md §1 item 6)")
     return g
 
 

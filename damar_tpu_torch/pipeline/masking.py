@@ -15,11 +15,13 @@ import numpy as np
 
 from damar_tpu_torch.core.blocks import ReadBlock
 from damar_tpu_torch.core.config import MaskConfig, OverlapConfig
-from damar_tpu_torch.formats.las import H_ABPOS, H_AEPOS, H_AREAD, LasFile
+from damar_tpu_torch.formats.las import (H_ABPOS, H_AEPOS, H_AREAD,
+                                         LasFile, columns_of)
 from damar_tpu_torch.formats.tracks import Track
 from damar_tpu_torch.ops.seeding import find_tandem_seeds
 from damar_tpu_torch.pipeline.overlap import extend_seeds
 from damar_tpu_torch.utils.dust import dust_block
+
 
 
 def _local_index(aread: np.ndarray, read_index: dict[int, int]
@@ -210,7 +212,7 @@ def repeat_track_coverage(las: LasFile, rlen_of: np.ndarray,
 
     read_index maps absolute read id -> local track index.
     """
-    h = las.columns.headers
+    h = columns_of(las).headers
     j = _local_index(h[:, H_AREAD], read_index)
     sel = j >= 0
     data = _coverage_data(j[sel], h[sel, H_ABPOS], h[sel, H_AEPOS],
@@ -225,7 +227,7 @@ def repeat_track_relative(las: LasFile, rlen_of: np.ndarray,
     """LArepeat equivalent: repeat threshold relative to the dataset's
     expected coverage (estimated as the median per-base coverage of
     reads with any alignment)."""
-    h = las.columns.headers
+    h = columns_of(las).headers
     j = _local_index(h[:, H_AREAD], read_index)
     sel = j >= 0
     jj = j[sel]

@@ -44,7 +44,7 @@ from damar_tpu_torch.core.config import OverlapConfig
 from damar_tpu_torch.formats.las import (H_ABPOS, H_AEPOS, H_AREAD,
                                          H_BBPOS, H_BEPOS, H_BREAD, H_DIFFS,
                                          H_FLAGS, H_TLEN, TRACE_XOVR,
-                                         LasColumns, LasFile,
+                                         LasColumns, LasFile, Overlap,
                                          encode_trace_columns)
 from damar_tpu_torch.formats.oflags import OVL_COMP, OVL_DISCARD
 from damar_tpu_torch.ops.seeding import (bias_weight_lut,
@@ -840,6 +840,89 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
     return las_a, las_b
 
 
+def _retrace(h: np.ndarray, rows: np.ndarray, blk_a: ReadBlock,
+             blk_b: ReadBlock, a_local: dict, b_local: dict,
+             cfg: OverlapConfig, device) -> dict:
+    """The wide-band retrace of header rows `rows` (their reads in the
+    blocks): {row: (trace [nseg, 2] int32, diffs)}, or (None, 0) for a
+    row whose retrace fails the trace checks.  Every row runs on K3's
+    wide_trace_kernel over a pool [A fwd | B fwd | B rc] of the two
+    blocks: one launch per segment-count bucket, both orientations
+    together (rows are independent, so the plan does not change a row's
+    result)."""
+    out: dict[int, tuple] = {}
+    if not len(rows):
+        return out
+    device = torch.device(device)
+    pool, OA, OBF, OBC, _ = _trace_pool(
+        blk_a, blk_b, _rc_cached(blk_b), None, emit_mirrors=False,
+        device=device)
+    hr = h[rows]
+    ar = np.array([a_local[int(r)] for r in hr[:, H_AREAD]], np.int64)
+    br = np.array([b_local[int(r)] for r in hr[:, H_BREAD]], np.int64)
+    comp = (hr[:, H_FLAGS] & OVL_COMP) != 0
+    units = dict(
+        abp=hr[:, H_ABPOS].astype(np.int32),
+        aep=hr[:, H_AEPOS].astype(np.int32),
+        bbp=hr[:, H_BBPOS].astype(np.int32),
+        bep=hr[:, H_BEPOS].astype(np.int32),
+        ast=OA + blk_a.starts.astype(np.int64)[ar],
+        bst=np.where(comp, OBC, OBF) + blk_b.starts.astype(np.int64)[br],
+        ar=ar, row=rows)
+    plan = _trace_plan(units["aep"] - units["abp"],
+                       _n_segments_vec(units["abp"], units["aep"],
+                                       cfg.tspace), _cap_segs(cfg))
+    wide = partial(trace_wave, W=cfg.band_width)
+    chunks = [{k: v[sel] for k, v in units.items()} for sel in plan]
+    res_all = _trace_harvest_all(
+        [_trace_launch(pool, ch, cfg, kernel=wide) for ch in chunks], cfg)
+    for ch, (offs, okv, packed, dsum) in zip(chunks, res_all):
+        for i, r in enumerate(ch["row"]):
+            out[int(r)] = ((packed[offs[i]:offs[i + 1]], int(dsum[i]))
+                           if okv[i] else (None, 0))
+    return out
+
+
+def retrace_las(las: LasFile, blk_a: ReadBlock, blk_b: ReadBlock,
+                cfg: OverlapConfig, only: list[Overlap] | None = None, *,
+                device) -> int:
+    """Recompute the trace and diffs of Overlap records in place (the
+    object form of retrace_rows, damar_tpu retrace_las: after LAstitch
+    merges fragments, whose traces must span the merged extent).
+    blk_a/blk_b hold the records' A and B reads (absolute ids through
+    blk.ids; a read they lack raises KeyError).  only: the records to
+    retrace (default every record of las.overlaps).  A record whose
+    retrace fails the trace checks is flagged OVL_DISCARD and keeps its
+    trace.  Returns the number so flagged.  The retrace is
+    retrace_rows': K3's wide_trace_kernel on `device` (keyword-only, no
+    default)."""
+    targets = only if only is not None else las.overlaps
+    a_local = {int(i): j for j, i in enumerate(blk_a.ids)}
+    b_local = {int(i): j for j, i in enumerate(blk_b.ids)}
+    for o in targets:
+        if o.aread not in a_local:
+            raise KeyError(o.aread)
+        if o.bread not in b_local:
+            raise KeyError(o.bread)
+    h = np.zeros((len(targets), 10), np.int32)
+    for i, o in enumerate(targets):
+        h[i, [H_ABPOS, H_AEPOS, H_BBPOS, H_BEPOS, H_AREAD, H_BREAD]] = (
+            o.abpos, o.aepos, o.bbpos, o.bepos, o.aread, o.bread)
+        h[i, H_FLAGS] = o.flags & OVL_COMP
+    res = _retrace(h, np.arange(len(targets)), blk_a, blk_b, a_local,
+                   b_local, cfg, device)
+    dropped = 0
+    for i, o in enumerate(targets):
+        tr, d = res[i]
+        if tr is None:
+            o.flags |= OVL_DISCARD
+            dropped += 1
+        else:
+            o.trace = tr.copy()
+            o.diffs = d
+    return dropped
+
+
 def retrace_rows(las: LasFile, rows, blk_a: ReadBlock, blk_b: ReadBlock,
                  cfg: OverlapConfig, *, device) -> int:
     """Recompute the trace and diffs of the given row indices of a
@@ -847,10 +930,8 @@ def retrace_rows(las: LasFile, rows, blk_a: ReadBlock, blk_b: ReadBlock,
     retrace_rows; after LAstitch, whose chains with overlapping
     fragments need a real trace across the junction).  blk_a/blk_b hold
     the rows' A and B reads (absolute ids through blk.ids).  Every row
-    runs on the wide band (K3's wide_trace_kernel) over a pool [A fwd | B
-    fwd | B rc] of the two blocks: one launch per segment-count bucket,
-    both orientations together (rows are independent, so the plan does
-    not change a row's result).  Rows whose retrace fails the trace
+    runs on the wide band (K3's wide_trace_kernel, see _retrace).  Rows
+    whose retrace fails the trace
     checks, and rows whose reads the blocks lack, get OVL_DISCARD and an
     empty trace (tlen 0).  Returns the number so dropped.  device
     (keyword-only, no default): where the pool and the launches go."""
@@ -858,49 +939,22 @@ def retrace_rows(las: LasFile, rows, blk_a: ReadBlock, blk_b: ReadBlock,
     rows = np.asarray(rows, dtype=np.int64)
     if not len(rows):
         return 0
-    device = torch.device(device)
     h = cols.headers
     a_local = {int(i): j for j, i in enumerate(blk_a.ids)}
     b_local = {int(i): j for j, i in enumerate(blk_b.ids)}
     known = np.array([int(a) in a_local and int(b) in b_local
                       for a, b in zip(h[rows, H_AREAD], h[rows, H_BREAD])],
                      bool)
-    good_rows = rows[known]
     failed = [int(r) for r in rows[~known]]
     new_rows: dict[int, np.ndarray] = {}
-    if len(good_rows):
-        pool, OA, OBF, OBC, _ = _trace_pool(
-            blk_a, blk_b, _rc_cached(blk_b), None, emit_mirrors=False,
-            device=device)
-        hr = h[good_rows]
-        ar = np.array([a_local[int(r)] for r in hr[:, H_AREAD]], np.int64)
-        br = np.array([b_local[int(r)] for r in hr[:, H_BREAD]], np.int64)
-        comp = (hr[:, H_FLAGS] & OVL_COMP) != 0
-        units = dict(
-            abp=hr[:, H_ABPOS].astype(np.int32),
-            aep=hr[:, H_AEPOS].astype(np.int32),
-            bbp=hr[:, H_BBPOS].astype(np.int32),
-            bep=hr[:, H_BEPOS].astype(np.int32),
-            ast=OA + blk_a.starts.astype(np.int64)[ar],
-            bst=np.where(comp, OBC, OBF) + blk_b.starts.astype(np.int64)[br],
-            ar=ar, row=good_rows)
-        plan = _trace_plan(units["aep"] - units["abp"],
-                           _n_segments_vec(units["abp"], units["aep"],
-                                           cfg.tspace), _cap_segs(cfg))
-        wide = partial(trace_wave, W=cfg.band_width)
-        chunks = [{k: v[sel] for k, v in units.items()} for sel in plan]
-        res_all = _trace_harvest_all(
-            [_trace_launch(pool, ch, cfg, kernel=wide) for ch in chunks],
-            cfg)
-        for ch, (offs, okv, packed, dsum) in zip(chunks, res_all):
-            for i, r in enumerate(ch["row"]):
-                if okv[i]:
-                    tr = packed[offs[i]:offs[i + 1]]
-                    h[r, H_TLEN] = 2 * len(tr)
-                    h[r, H_DIFFS] = int(dsum[i])
-                    new_rows[int(r)] = tr
-                else:
-                    failed.append(int(r))
+    for r, (tr, d) in _retrace(h, rows[known], blk_a, blk_b, a_local,
+                               b_local, cfg, device).items():
+        if tr is None:
+            failed.append(r)
+        else:
+            h[r, H_TLEN] = 2 * len(tr)
+            h[r, H_DIFFS] = d
+            new_rows[r] = tr
     for r in failed:
         h[r, H_FLAGS] = np.int32(np.uint32(h[r, H_FLAGS]) | OVL_DISCARD)
         h[r, H_TLEN] = 0

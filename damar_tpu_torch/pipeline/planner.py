@@ -12,8 +12,9 @@ files), the port of damar_tpu.pipeline.planner:
     .las files and done markers, then merging per A block.
 
   * plan_masking: the dust, per-block tandem and coarse-to-fine repeat
-    mask job list (the HPC.TANmask / HPC.REPmask shape), as data; its
-    executor is the command line, not ported yet, like render_script.
+    mask job list (the HPC.TANmask / HPC.REPmask shape), as data.
+  * render_script: the shell form of the plans, one command line of
+    damar_tpu_torch.cli per job (HPC.daligner parity).
 """
 from __future__ import annotations
 
@@ -132,6 +133,73 @@ def plan_masking(db_root: str, nblocks: int,
     return jobs
 
 
+def render_script(jobs: list[Job], db_root: str | None = None,
+                  with_masking: bool = True, nblocks: int | None = None
+                  ) -> str:
+    """HPC.daligner-parity rendering: one shell line per job, phase
+    comments, using this package's CLI.  with_masking prepends the
+    HPC.TANmask/HPC.REPmask-equivalent phase lines (dust + per-block
+    tandem detection, then repeat masking fed back into the job
+    matrix)."""
+    lines = ["# damar_tpu_torch job plan"]
+    # generated job scripts run from arbitrary workdirs (the shared-FS
+    # rendezvous contract): make the package importable even from a
+    # non-installed checkout.  HPC planner output is machine-local by
+    # nature, as the lineage's generated scripts are.
+    import damar_tpu_torch
+    pkg_parent = os.path.dirname(os.path.dirname(
+        os.path.abspath(damar_tpu_torch.__file__)))
+    lines.append(f'export PYTHONPATH="{pkg_parent}:$PYTHONPATH"')
+    if with_masking and db_root:
+        nb = nblocks or max(
+            (j.args.get("a_block", 1) for j in jobs
+             if j.kind == "overlap"), default=1)
+        lines.append("# phase 0: masking "
+                     "(HPC.TANmask / HPC.REPmask equivalents)")
+        for j in plan_masking(db_root, nb):
+            a = j.args
+            if j.kind == "overlap":
+                m = " ".join(f"-m {t}" for t in a.get("masks", []))
+                lines.append(
+                    f"python -m damar_tpu_torch.cli daligner {a['db']} "
+                    f"{a['a_block']} {a['b_block']}"
+                    + (f"  # masks: {m}" if m else ""))
+                continue
+            if a["cmd"] == "dbdust":
+                lines.append(f"python -m damar_tpu_torch.cli dbdust {db_root}")
+            elif a["cmd"] == "datander":
+                lines.append(f"python -m damar_tpu_torch.cli datander "
+                             f"{db_root} -b {a['block']}")
+            elif a["cmd"] == "tkmerge":
+                lines.append(f"python -m damar_tpu_torch.cli tkmerge "
+                             f"{db_root} {a['track']}")
+            elif a["cmd"] == "repmask":
+                lines.append(f"# after {', '.join(j.deps[:1])}: "
+                             f"python -m damar_tpu_torch.cli repmask "
+                             f"{db_root} {a['las']}")
+    lines += ["# phase 1: block-pair overlaps"]
+    for j in jobs:
+        if j.kind == "overlap":
+            a = j.args
+            lines.append(
+                f"python -m damar_tpu_torch.cli daligner {a['db']} "
+                f"{a['a_block']} {a['b_block']}")
+    lines.append("# phase 2: merges")
+    for j in jobs:
+        if j.kind == "merge":
+            a = j.args
+            lines.append(
+                "python -m damar_tpu_torch.cli lamerge " + a["out"] + " "
+                + " ".join(a["inputs"]))
+    lines.append("# phase 3: checks")
+    for j in jobs:
+        if j.kind == "check":
+            a = j.args
+            lines.append(f"python -m damar_tpu_torch.cli lacheck {a['db']} "
+                         f"{a['las']}")
+    return "\n".join(lines) + "\n"
+
+
 class Manifest:
     """Done-marker bookkeeping in a JSONL file: each completed job
     appends one record; a restarted run skips completed jobs."""
@@ -207,7 +275,8 @@ def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
                      mask_names: list[str] | None = None,
                      nhosts: int = 1, host_id: int = 0,
                      hit_cap: int | None = None,
-                     seed_cap: int | None = None, *, device) -> dict:
+                     seed_cap: int | None = None, *, device,
+                     shown_stats=None) -> dict:
     """Execute the overlap job matrix for a split DB on `device` ("cuda",
     or "cpu" for the plain kernel versions; no default), idempotently.
 
@@ -223,6 +292,8 @@ def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
     each pair's exact totals (overlap_block_pair).  A pair whose seeding
     an explicit cap cut short raises RuntimeError, naming the pair and
     its totals, before anything of it is written or marked done.
+    shown_stats: a function of a pair's stats giving what its verbose
+    line prints (default: all of them).
     """
     import time
     from damar_tpu_torch.core.blocks import block_from_db
@@ -336,8 +407,9 @@ def run_overlap_plan(db_path: str, cfg, las_dir: str = None,
         stats["overlaps"] += la.novl
         stats.setdefault("pair_stats", []).append(dict(st, pair=name))
         if verbose:
+            shown = st if shown_stats is None else shown_stats(st)
             print(f"# {name}: {la.novl} overlaps "
-                  f"({time.time() - t0:.1f}s) {st}")
+                  f"({time.time() - t0:.1f}s) {shown}")
     # merge per A block, only once EVERY pair touching the block is done
     # (multi-host runs reach this point per host; the manifest on the
     # shared filesystem is the rendezvous)

@@ -12,8 +12,8 @@ sequence of the best covering B read, mapped through trace points, and
 splits reads at uncovered gaps.  Stitched chains that need a real
 trace go to pipeline.overlap.retrace_rows (K3 on the device).
 
-Not ported: classify (it takes an Overlap object, and no stage calls
-it; it waits for the .las object API).
+An object-backed LasFile is read through its columns, built in one pass
+(formats.las.columns_of), so every tool takes either form.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from damar_tpu_torch.core.config import ScrubConfig
 from damar_tpu_torch.formats.las import (H_ABPOS, H_AEPOS, H_AREAD,
                                          H_BBPOS, H_BEPOS, H_BREAD,
                                          H_DIFFS, H_FLAGS, H_TLEN,
-                                         LasColumns, LasFile, _decode_trace,
+                                         LasColumns, LasFile, Overlap,
+                                         _decode_trace, columns_of,
                                          encode_trace_columns)
 from damar_tpu_torch.formats.oflags import (
     OVL_COMP, OVL_CONT, OVL_DISCARD, OVL_GAP, OVL_LOCAL, OVL_REPEAT,
@@ -60,7 +61,7 @@ def stitch_las(las: LasFile, fuzz: int = 100
     their rows are returned in `needs` for
     pipeline.overlap.retrace_rows.
     """
-    cols = las.columns
+    cols = columns_of(las)
     n = cols.n
     if n == 0:
         return LasFile(tspace=las.tspace,
@@ -255,7 +256,7 @@ def q_and_trim(las: LasFile, rlen_of: dict[int, int], cfg: ScrubConfig
     np.cumsum(nseg_of, out=off[1:])
     qflat = np.full(int(off[-1]), Q_NOCOV, np.int64)
 
-    cols = las.columns
+    cols = columns_of(las)
     if cols.n and reads:
         # int32 throughout: the expansion is 10^7-10^8 trace segments
         # at block scale and the elementwise passes are memory-bound
@@ -344,7 +345,7 @@ def _best_covers(las: LasFile, ts: int):
     Returns dict aread -> dict seg -> (diffs, bread, comp, b_lo, b_hi)
     where [b_lo, b_hi) is the B interval spanned by that segment of
     the winning alignment (via cumulative trace b-spans)."""
-    cols = las.columns
+    cols = columns_of(las)
     if cols.n == 0:
         return {}
     h = cols.headers
@@ -462,7 +463,7 @@ def gap_breaks(las: LasFile, rlen_of: dict[int, int], cfg: ScrubConfig
     Returns per-read break positions.  Columnar: one global event sort
     (aread, pos, delta) and a grouped coverage prefix replace the
     per-pile sweeps."""
-    cols = las.columns
+    cols = columns_of(las)
     if cols.n == 0 or not rlen_of:
         return {}
     h = cols.headers
@@ -541,7 +542,7 @@ def clip_las_to_trim(las: LasFile, rlen_of: dict[int, int],
     that way; gap_trim snaps its cuts with ts=) so the absolute-
     boundary trace invariant survives the shift.  Fully columnar: one
     pass over the trace tensor, no per-record objects."""
-    cols = las.columns
+    cols = columns_of(las)
     ts = las.tspace
     small = las.small
     n = cols.n
@@ -637,6 +638,23 @@ def trim_luts(rlen_of: dict[int, int],
 
 # --- LAfilter ---------------------------------------------------------------
 
+def classify(o: Overlap, alen: int, blen: int, fuzz: int = 25) -> str:
+    """Dovetail classification in trimmed coordinates."""
+    a_l = o.abpos <= fuzz
+    a_r = o.aepos >= alen - fuzz
+    b_l = o.bbpos <= fuzz
+    b_r = o.bepos >= blen - fuzz
+    if a_l and a_r:
+        return "a_contained"
+    if b_l and b_r:
+        return "b_contained"
+    if (a_r and b_l) or (a_l and b_r):
+        return "dovetail"
+    if a_l or a_r or b_l or b_r:
+        return "partial"
+    return "local"
+
+
 def filter_las(las: LasFile, rlen_of: dict[int, int],
                cfg: ScrubConfig, repeat_iv: dict[int, np.ndarray] | None
                = None, trim_of: dict[int, tuple[int, int]] | None = None
@@ -652,7 +670,7 @@ def filter_las(las: LasFile, rlen_of: dict[int, int],
     outside a trim interval are discarded, and reads with an empty
     trim lose all their records (the reference's LAfilter -t /
     OGbuild -t contract — upstream-path citation, mount empty)."""
-    cols = las.columns
+    cols = columns_of(las)
     n = cols.n
     if n == 0:
         return LasFile(tspace=las.tspace,

@@ -197,11 +197,22 @@ def test_contig_statistics(hard):
 
 
 def test_object_backed_las_is_refused(hard):
-    obj = type("ObjectLas", (), {"overlaps": ref_las.read_las(
-        hard["filt"]).overlaps, "tspace": 100})()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cs.correct_reads(obj, hard["seq_of"], hard["trlen"], **CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cs.full_layout([(0, 0, 0)], obj, hard["trlen"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cs.polish_read(0, obj, hard["seq_of"], 100, **CPU)
+    """Records as objects (no columns) were refused until the .las object
+    API was ported; correct_reads, full_layout and polish_read now read
+    them as the reference does."""
+    rl = ref_las.read_las(hard["filt"])
+    obj = las.LasFile(rl.tspace, overlaps=rl.overlaps)
+    reads = sorted({o.aread for o in rl.overlaps})[:2]
+    got = cs.correct_reads(obj, hard["seq_of"], hard["trlen"], reads=reads,
+                           **CPU)
+    want = ref_cs.correct_reads(rl, hard["seq_of"], hard["trlen"],
+                                reads=reads)
+    assert got.keys() == want.keys() == set(reads)
+    assert all(np.array_equal(got[r], want[r]) for r in reads)
+    lay = [(r, 0, 3000 * k) for k, r in enumerate(reads)]
+    assert cs.full_layout(lay, obj, hard["trlen"]) == \
+        ref_cs.full_layout(lay, rl, hard["trlen"])
+    r = reads[0]
+    assert np.array_equal(
+        cs.polish_read(r, obj, hard["seq_of"], hard["trlen"][r], **CPU),
+        ref_cs.polish_read(r, rl, hard["seq_of"], hard["trlen"][r]))

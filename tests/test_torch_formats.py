@@ -161,9 +161,12 @@ def test_fasta_records_equal(tmp_path):
     for k in (1, 2):
         for a, b in zip(got[k], want[k]):
             np.testing.assert_array_equal(a, b)
-    # qualities need the .qvs codec, which waits: no silent drop
-    with pytest.raises(NotImplementedError, match="qvs"):
-        dazzdb.create_db(str(tmp_path / "Q.db"), [str(fq)])
+    # the qualities go to the .qvs file, as the reference writes it
+    dazzdb.create_db(str(tmp_path / "Q.db"), [str(fq)])
+    ref_db.create_db(str(tmp_path / "R.db"), [str(fq)])
+    for f in ("{}.db", ".{}.idx", ".{}.bps", ".{}.qvs"):
+        assert filecmp.cmp(tmp_path / f.format("Q"), tmp_path / f.format("R"),
+                           shallow=False)
 
 
 def _intervals(rng, nreads, rlen):

@@ -189,6 +189,9 @@ def test_empty_and_object_backed_files(inputs):
     empty = graph.build_graph(las.LasFile(100), trlen)
     assert edges_of(empty) == [] and not empty.contained
     assert touring.tour_graph(empty) == []
-    with pytest.raises(NotImplementedError, match="item 6"):
-        graph.build_graph(type("ObjectLas", (), {
-            "overlaps": rl.overlaps})(), trlen)
+    # records as objects (no columns) give the reference's graph
+    got = graph.build_graph(las.LasFile(rl.tspace, overlaps=rl.overlaps),
+                            trlen, fuzz=FUZZ, min_dovetail=MIN_DOVETAIL)
+    want = ref_graph.build_graph(rl, trlen, fuzz=FUZZ,
+                                 min_dovetail=MIN_DOVETAIL)
+    assert state_of(got) == state_of(want) and edges_of(got)

@@ -160,7 +160,8 @@ def test_repeat_tracks(rng, high):
     idx = {i + 100: i for i in range(nreads)}            # absolute ids
     h[:, 7] += 100
     ref_cols.headers[:, 7] += 100
-    las, ref_las = LasFile(100, cols), RefLasFile(100, columns=ref_cols)
+    las, ref_las = LasFile(100, columns=cols), RefLasFile(100,
+                                                          columns=ref_cols)
     got = masking.repeat_track_coverage(las, rlen, idx, nreads, 4)
     want = ref_masking.repeat_track_coverage(ref_las, rlen, idx, nreads, 4)
     for g, w in zip(got.data, want.data):

@@ -122,8 +122,9 @@ def test_check_las_reports_faults(tmp_path):
 # every module of the port that holds code; the import check below must
 # have walked each of them
 PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
-    "core.blocks", "core.config", "formats.dazzdb", "formats.fasta",
-    "formats.las", "formats.oflags", "formats.tracks", "ops._cuda",
+    "cli", "core.blocks", "core.config", "formats.dazzdb", "formats.fasta",
+    "formats.las", "formats.oflags", "formats.qv", "formats.qv_huff",
+    "formats.tracks", "ops._cuda",
     "ops.band_align", "ops.kmers", "ops.seeding", "ops.sort",
     "ops.wave_bp", "ops.wave_wide", "ops.words", "parallel.distributed",
     "pipeline.consensus", "pipeline.contigs", "pipeline.graph",
@@ -135,7 +136,9 @@ PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
 
 
 def test_port_imports_no_jax():
-    """Run in a subprocess: this test process already imported jax."""
+    """Run in a subprocess: this test process already imported jax.  Every
+    module is imported, and the command line prints its help (the whole
+    and a tool's) without importing jax or damar_tpu."""
     code = (
         "import sys\n"
         "pre = set(sys.modules)\n"
@@ -147,6 +150,16 @@ def test_port_imports_no_jax():
         "    seen.add(m.name)\n"
         f"missing = sorted(set({PORT_MODULES!r}) - seen)\n"
         "assert not missing, missing\n"
+        "import contextlib, io\n"
+        "from damar_tpu_torch import cli\n"
+        "for argv in (['--help'], ['daligner', '--help']):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        try:\n"
+        "            cli.main(argv)\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, e.code\n"
+        "    assert 'damar_tpu_torch' in buf.getvalue()\n"
         "bad = sorted(k for k in set(sys.modules) - pre if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'damar_tpu.')) or k == 'damar_tpu')\n"
         "print(bad)\n"
