@@ -182,11 +182,28 @@ Phases (any failure exits non-zero before the last line is printed):
         with DAMAR_PLATFORM unset it writes the in-process daligner's
         file, with no card visible it exits non-zero naming the missing
         card, with DAMAR_PLATFORM=cpu it writes the same bytes;
+ 13. the ring sweep (damar_tpu_torch.parallel.distributed):
+     a. after phase 8, on its DB (4 blocks of ~50 Mbp at one common
+        cap): distributed_overlap_las as a ring of one rank on the card,
+        16 one-rotation sweeps; every shard check_las clean and sorted,
+        for i < j shard i's records of B-block j byte-equal to
+        overlap_block_pair's A side with mirrors off and holding phase
+        8's pair file S.i.S.j.las (mirrors on, so a record whose mirror
+        failed its trace is not there), the ring's first K1, K2 and K3 launches
+        (capped at CAP items) equal to their plain versions; the wall of
+        each program (overlap ring, dedupe, trace ring, checks with wide
+        retries and emit), Gbp-aligned/s/gpu, records, retries, peak
+        memory and the ring's launches;
+     b. then 4 ranks spawned over gloo, each on the card with the blocks
+        staged through host memory, on tests/test_parallel.py's 12-block
+        spread DB (3 x 3 super-sweeps): every shard byte-equal to a ring
+        of one rank on the card and to the CPU run; two ranks asked for
+        NCCL on the one card must refuse;
 then print one JSON line of per-kernel results (`stage_launches`: each
 kernel's launches in phase 9, `assembly_launches` in phase 10b,
 `default_block_launches` per path of phase 11, `cli_launches` over
-phase 12's in-process tools; K4's row holds phase 10b's launches and
-device time) and, last, the device line.
+phase 12's in-process tools, `ring_launches` in 13a; K4's row holds
+phase 10b's launches and device time) and, last, the device line.
 """
 import argparse
 import contextlib
@@ -212,6 +229,7 @@ from damar_tpu_torch.formats import las as lasmod
 from damar_tpu_torch.formats.las import check_las
 from damar_tpu_torch.ops import _cuda, band_align, wave_bp, wave_wide
 from damar_tpu_torch.ops.words import pack_bases
+from damar_tpu_torch.parallel import distributed as ring
 from damar_tpu_torch.parallel.distributed import block_pair_matrix
 from damar_tpu_torch.pipeline import overlap as ov
 from damar_tpu_torch.pipeline.planner import run_overlap_plan
@@ -1211,9 +1229,11 @@ def mirrors_missing(merged: list, rlen: np.ndarray) -> int:
     return int((own != mir).any(axis=1).sum())
 
 
-def sweep_phase(dev, card: str, rounds: int) -> dict:
+def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
     """Phase 8 (see the module docstring).  Returns the sweep's numbers
-    and the launches of each kernel in it."""
+    and the launches of each kernel in it; then(workdir, db), when
+    given, runs on its DB and files before they go (phase 13a), its
+    result under "then"."""
     cfg = OverlapConfig()
     w = tempfile.mkdtemp(prefix="damar_smoke_sweep_")
     try:
@@ -1396,13 +1416,211 @@ def sweep_phase(dev, card: str, rounds: int) -> dict:
         log(f"sweep pair 1, 2 (distinct, mirrors): files byte-equal to the "
             f"plain loop's; launches {n_held} equal to their plain versions "
             f"({time.time() - t0:.1f} s)")
-        return dict(launches=launches, wall_s=wall, wall_plain_s=wall_plain,
-                    aligned_bp=aligned, records=novl, peak_bytes=peak,
-                    peak_plain_bytes=peak_plain, pairs=len(pairs),
-                    total_bp=total_bp, released_one_resident=len(released),
-                    pair_launches_held=n_held)
+        out = dict(launches=launches, wall_s=wall, wall_plain_s=wall_plain,
+                   aligned_bp=aligned, records=novl, peak_bytes=peak,
+                   peak_plain_bytes=peak_plain, pairs=len(pairs),
+                   total_bp=total_bp, released_one_resident=len(released),
+                   pair_launches_held=n_held)
+        if then is not None:
+            out["then"] = then(w, db)
+        return out
     finally:
         shutil.rmtree(w, ignore_errors=True)
+
+
+# the ring's first launch of each kernel held against its plain version
+RING_HELD = {"bp_extend_kernel": 1, "bp_trace_kernel": 1,
+             "wide_trace_kernel": 1}
+# phase 13b: ranks spawned over gloo on the one card, and the spread DB
+# they sweep (tests/test_parallel.py's 12-block DB: reads dealt to blocks
+# by genome position, so 3 x 3 super-sweeps of 4 ranks)
+RING_RANKS, RING_SPREAD_BLOCKS, RING_TIMEOUT = 4, 12, 300.0
+
+
+def ring_shard_bytes(las: dict, d: str, tag: str) -> dict:
+    """{i: bytes} of a ring's shards, each written with write_las."""
+    out = {}
+    for i, lf in las.items():
+        lasmod.write_las(f"{d}/{tag}.{i}.las", lf)
+        with open(f"{d}/{tag}.{i}.las", "rb") as f:
+            out[i] = f.read()
+    return out
+
+
+def ring_full(dev, card: str, w: str, db) -> dict:
+    """Phase 13a: the ring sweep at full width on one card, a ring of one
+    rank over phase 8's 4 blocks of ~50 Mbp (their cap made common): 16
+    one-rotation sweeps cover the 16 ordered pairs.  Every shard
+    check_las clean and sorted; for i < j, shard i's records of B-block
+    j byte-equal to overlap_block_pair's A side with mirrors off, and a
+    superset of phase 8's pair file S.i.S.j.las (mirrors on: a record
+    whose mirror fails its trace is dropped with it); the ring's first
+    K1, K2 and K3 launches (capped at CAP items) equal to their plain
+    versions."""
+    n = db.nblocks
+    caps = [block_from_db(db, b).cap for b in range(1, n + 1)]
+    blocks = [block_from_db(db, b, cap=max(caps)) for b in range(1, n + 1)]
+    cfg = OverlapConfig()
+    timings, stats = {}, {}
+    with Spy(keep=RING_HELD) as spy:
+        (las, counts, total), wall, peak = timed(
+            dev, lambda: ring.distributed_overlap_las(
+                blocks, cfg, timings=timings, stats=stats, device=dev))
+    launches = read_launches()
+    log(f"ring (13a) ran: wall {wall:.4f} s, {timings}, {stats}, totals "
+        f"{total.tolist()}, launches {launches}")
+    missing = [k for k in RING_HELD if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: ring: kernels not launched: {missing}"
+                         f" (launches {launches})")
+    rlen = db.reads["rlen"]
+    d = f"{w}/ring"
+    os.makedirs(d)
+    t0 = time.time()
+    novl = spans = 0
+    names, extra = [], {}
+    for i in range(n):
+        shard = las[i]
+        problems = check_las(shard, rlen, rlen, sorted_order=True)
+        if problems:
+            raise SystemExit(f"chip_smoke: ring: check_las shard {i}: "
+                             f"{problems[:5]}")
+        novl += shard.novl
+        spans += int(shard.a_spans().sum())
+        bread = shard.columns.headers[:, 8]
+        for j in range(i + 1, n):
+            name = f"S.{i + 1}.S.{j + 1}.las"
+            rows = np.nonzero(np.isin(bread, blocks[j].ids))[0]
+            part = lasmod.LasFile(shard.tspace,
+                                  columns=shard.columns.permute(rows))
+            lasmod.write_las(f"{d}/{name}", part)
+            # the pair driver's A side with mirrors off (the reference's
+            # own ring test compares that): the same bytes
+            la, _, _ = ov.overlap_block_pair(blocks[i], blocks[j], cfg,
+                                             False, emit_mirrors=False,
+                                             device=dev)
+            lasmod.write_las(f"{d}/pair.{name}", la)
+            if not filecmp.cmp(f"{d}/{name}", f"{d}/pair.{name}",
+                               shallow=False) or not len(rows):
+                raise SystemExit(f"chip_smoke: ring: {name}: {len(rows)} "
+                                 f"records, the pair driver's {la.novl}, "
+                                 f"other bytes")
+            # phase 8's pair file (mirrors on) holds a subset: a record
+            # whose mirror failed its trace goes with it
+            ring_h = {tuple(x) for x in part.columns.headers.tolist()}
+            sweep = lasmod.read_las(f"{w}/plain/{name}")
+            sweep_h = [tuple(x) for x in sweep.columns.headers.tolist()]
+            if not all(x in ring_h for x in sweep_h):
+                raise SystemExit(f"chip_smoke: ring: phase 8's {name} holds "
+                                 f"records the ring lacks")
+            extra[name] = part.novl - sweep.novl
+            names.append(name)
+        ov.release_device_buffers(blocks[i])
+    t_check = time.time() - t0
+    held = hold_first("ring", spy, RING_HELD)
+    del spy
+    aligned = spans // 2
+    log(f"ring (13a), 1 rank, {n} blocks of cap {max(caps)}: wall "
+        f"{wall:.4f} s (overlap ring {timings['overlap_ring']:.4f}, dedupe "
+        f"{timings['dedupe']:.4f}, trace ring {timings['trace_ring']:.4f}, "
+        f"checks, wide retries and emit {timings['retry_emit']:.4f}), "
+        f"{novl} records, aligned bp {aligned} (A spans {spans} / 2), "
+        f"{aligned / wall / 1e9:.4f} Gbp-aligned/s/gpu, seeds {total[0]}, "
+        f"extents {total[1]}, hits {total[2]}, trace_retries "
+        f"{stats['trace_retries']}, dropped_trace {stats['dropped_trace']}, "
+        f"peak device memory {peak / 2**30:.2f} GiB ({peak} B), launches "
+        f"{launches} on {card}")
+    log(f"ring (13a): shards check_las clean and sorted; {len(names)} pair "
+        f"parts byte-equal to the pair driver's A side (mirrors off), and "
+        f"each holds phase 8's pair file (mirrors on) and {extra} records "
+        f"more, whose mirror failed its trace there (checks {t_check:.1f} "
+        f"s); first launches {held} equal to their plain versions")
+    for b in blocks:
+        ov.release_device_buffers(b)
+    return dict(launches=launches, wall_s=wall, timings_s=timings,
+                records=novl, aligned_bp=aligned,
+                gbp_aligned_per_s=aligned / wall / 1e9,
+                seeds=int(total[0]), extents=int(total[1]),
+                hits=int(total[2]), peak_bytes=peak, **stats, held=held,
+                beyond_sweep_files=extra)
+
+
+def ring_spread_blocks() -> list:
+    """Phase 13b's DB: tests/test_parallel.py's 12-block spread DB (a 40
+    kbp genome at 3x, reads of >= 1.5 kb dealt by position)."""
+    g = make_genome(40_000, seed=83)
+    r = sample_reads(g, coverage=3.0, mean_len=3000, err=0.12, seed=84,
+                     min_len=1500, circular=False)
+    order = np.argsort(r.start)
+    k = RING_SPREAD_BLOCKS
+    return [block_from_reads([r.reads[i] for i in order[d::k]],
+                             ids=np.asarray(order[d::k], np.int64),
+                             cap=1 << 16) for d in range(k)]
+
+
+def ring_ranks(dev, card: str) -> dict:
+    """Phase 13b: the rotation itself on one card.  RING_RANKS ranks
+    spawned over gloo, each running its kernels on the card, the blocks
+    staged through host memory, sweep the 12-block spread DB (3 x 3
+    super-sweeps); every shard byte-equal to a ring of one rank on the
+    card and to the port's CPU run.  Then two ranks asked for NCCL on the
+    one card must both refuse, naming it."""
+    blocks = ring_spread_blocks()
+    cfg = OverlapConfig(min_len=900, max_read_len=16384)
+    d = tempfile.mkdtemp(prefix="damar_smoke_ring_")
+    try:
+        walls = {}
+        t0 = time.time()
+        one = ring_shard_bytes(ring.distributed_overlap_las(
+            blocks, cfg, device=dev)[0], d, "card")
+        walls["one_rank_card"] = time.time() - t0
+        t0 = time.time()
+        cpu = ring_shard_bytes(ring.distributed_overlap_las(
+            blocks, cfg, device="cpu")[0], d, "cpu")
+        walls["one_rank_cpu"] = time.time() - t0
+        t0 = time.time()
+        ring.spawn_ranks(ring.ring_to_dir, RING_RANKS,
+                         ([("spread", blocks, cfg, {}, "las")], d,
+                          str(dev)), backend="gloo", timeout=RING_TIMEOUT)
+        walls["ranks"] = time.time() - t0
+        with open(f"{d}/spread/rank0.json") as f:
+            info = json.load(f)
+        got = {}
+        for i in range(len(blocks)):
+            with open(f"{d}/spread/shard.{i}.las", "rb") as f:
+                got[i] = f.read()
+        records = sum(lasmod.read_las(f"{d}/card.{i}.las").novl
+                      for i in one)
+        if got != one or cpu != one or records <= 0:
+            raise SystemExit(f"chip_smoke: ring ranks: shards differ (ranks "
+                             f"== card {got == one}, CPU == card "
+                             f"{cpu == one}, {records} records)")
+        if (info["backend"], info["staged"]) != ("gloo", True):
+            raise SystemExit(f"chip_smoke: ring ranks ran {info}")
+        t0 = time.time()
+        try:
+            ring.spawn_ranks(ring.ring_to_dir, 2, ([], d, str(dev)),
+                             backend="nccl", timeout=120.0)
+        except Exception as e:      # each rank raises; the first is reported
+            refused = "two ranks on one card" in str(e)
+        else:
+            refused = False
+        if not refused:
+            raise SystemExit("chip_smoke: NCCL with two ranks on one card "
+                             "did not refuse")
+        walls["nccl_refusal"] = time.time() - t0
+        log(f"ring ranks (13b): {RING_RANKS} ranks over {info['backend']}, "
+            f"each on {info['device']}, blocks staged through host memory "
+            f"({info['staged']}), {len(blocks)} blocks "
+            f"({(len(blocks) // RING_RANKS) ** 2} super-sweeps): {records} "
+            f"records, every shard byte-equal to one rank on the card and to "
+            f"the CPU run; rank 0's walls {info['timings']}; NCCL with two "
+            f"ranks on {dev} refused; walls {walls} on {card}")
+        return dict(ranks=RING_RANKS, backend=info["backend"],
+                    staged=info["staged"], records=records,
+                    rank0_timings_s=info["timings"], walls_s=walls)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def report_profile(prof, wall: float, path: str | None) -> None:
@@ -3005,10 +3223,25 @@ def main(argv=None) -> int:
     del blk, las_a, las_s
     torch.cuda.empty_cache()
     t0 = time.time()
-    swept = sweep_phase(dev, card, args.sweep_rounds)
-    log(f"sweep phase: {time.time() - t0:.1f} s")
+    t_ring = {}
+
+    def ring_phase(w, db):
+        t1 = time.time()
+        out = ring_full(dev, card, w, db)
+        t_ring["a"] = time.time() - t1
+        log(f"phase 13a: {t_ring['a']:.1f} s")
+        return out
+    swept = sweep_phase(dev, card, args.sweep_rounds, then=ring_phase)
+    ringed = {"full": swept.pop("then")}
+    log(f"sweep phase: {time.time() - t0 - t_ring['a']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ringed["ranks"] = ring_ranks(dev, card)
+    log(f"phase 13b: {time.time() - t0:.1f} s")
+    ring_launches = ringed["full"].pop("launches")
     for r in rows:
         r["sweep_launches"] = swept["launches"][r["name"]]
+        r["ring_launches"] = ring_launches[r["name"]]
     rows[-2]["wide_route_launches"] = wide["wide_trace_launches"]
     rows[-1]["wide_route_launches"] = wide["launches"]
     swept.pop("launches")
@@ -3046,6 +3279,7 @@ def main(argv=None) -> int:
     row, launches_asm = k4_row(asm, errs, sass, card)
     for r in rows:
         r["assembly_launches"] = launches_asm[r["name"]]
+    row["ring_launches"] = ring_launches[K4]
     rows.append(row)
 
     # ---- a tiny assembly on the card and on the CPU path ----
@@ -3077,7 +3311,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows, "wide_retry_routes": routes,
                       "wide_route": wide, "sweep": swept, "stages": staged,
                       "assembly": asm, "default_block": default,
-                      "cli": cli_run,
+                      "cli": cli_run, "ring": ringed,
                       "profiler_lost_launches": LOST_LAUNCHES}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

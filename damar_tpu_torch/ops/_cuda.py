@@ -147,5 +147,13 @@ def count_launch(wrapper, items: int) -> None:
 
 
 def stream_ptr(t) -> int:
+    """The current stream of t's card, for a launch.  The C side
+    launches on the host thread's current device, so a tensor on
+    another card raises (torch.cuda.set_device chooses the card)."""
     import torch
+    if t.device.index != torch.cuda.current_device():
+        raise RuntimeError(
+            f"a kernel launch on {t.device} while cuda:"
+            f"{torch.cuda.current_device()} is current: call "
+            f"torch.cuda.set_device({t.device.index}) first")
     return torch.cuda.current_stream(t.device).cuda_stream

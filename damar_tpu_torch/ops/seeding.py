@@ -36,6 +36,13 @@ from the counts, not capped as the reference's are (fault 3g in
 ROADMAP.md; explicit caps reproduce the reference's truncation); above
 _SLICE_CAP hits it runs by ranges of reads.
 
+The reference's plain API (one orientation, forward codes, block
+positions: match_hits, compact_hits, compact_hits_packed,
+find_seeds_dev, find_seeds) is here too, on no pipeline path.  The ring
+sweep seeds with find_seeds_canonical_dev, given both indexes
+(b_index: B's travels the ring) and suppress_equal on the rotation that
+pairs a block with itself.
+
 Out-of-range gathers: JAX clamps gather indices; every index below is
 clipped where the reference clips, explicitly or implicitly.
 """
@@ -295,13 +302,16 @@ def diagonal_filter_packed(ap_mp, bp_mp, nhits: int,
                            read_bits: int, band_shift: int,
                            hit_min: int, kmer: int, seed_cap: int,
                            upper_only: bool, include_self: bool = False,
-                           wprefix=None, a_starts=None):
+                           wprefix=None, a_starts=None,
+                           suppress_equal: bool = False):
     """Single-bucket banding over packed hits: sort by the packed
     (arpos, bucket, strand, br, ar) key (arpos least significant), sum
     novel k-mer coverage per band, score each band as cov(band-1) +
     cov(band), and keep the first hit of every band reaching hit_min.
     wprefix (-b, with a_starts): the coverage is weighted over block
     positions (a_starts[ar] + arpos) and the threshold is hit_min * 256.
+    suppress_equal: drop hits of a read against itself (the ring's
+    rotation that pairs a block with itself, where upper_only is off).
     Returns (ar, br, arpos, brpos, score, comp, nseeds, total_seeds) in
     read-local coordinates (dead rows -1, score/comp 0)."""
     n = ap_mp.shape[0]
@@ -316,6 +326,8 @@ def diagonal_filter_packed(ap_mp, bp_mp, nhits: int,
     live = torch.arange(n, device=dev) < nhits
     if upper_only:
         live &= (ar <= br) if include_self else (ar < br)
+    if suppress_equal:
+        live &= ar != br
     rpb = max(a_rpos_bits, b_rpos_bits)
     # fwd diagonal arpos - brpos (offset nonnegative); comp ANTI-diagonal
     # arpos + brpos: both constant along an overlap line
@@ -483,7 +495,8 @@ def _find_seeds_sliced(amp, bmp, lo_cnt: list, *, blk_a, blk_b, cfg,
                        a_rid_bits: int, a_rpos_bits: int,
                        b_rid_bits: int, b_rpos_bits: int,
                        upper_only: bool, include_self: bool,
-                       a_starts, b_starts, wprefix=None) -> dict:
+                       a_starts, b_starts, wprefix=None,
+                       suppress_equal: bool = False) -> dict:
     """The fill and banding of find_seeds_canonical_dev by two slices of
     B reads; the same seeds in the same order.  lo_cnt: [lo, cnt], a
     list this function empties, so the table-scale tensors go as soon as
@@ -515,7 +528,8 @@ def _find_seeds_sliced(amp, bmp, lo_cnt: list, *, blk_a, blk_b, cfg,
             b_rpos_bits=b_rpos_bits, read_bits=read_bits,
             band_shift=cfg.band_shift, hit_min=cfg.hit_min, kmer=cfg.kmer,
             seed_cap=seed_cap, upper_only=upper_only,
-            include_self=include_self, wprefix=wprefix, a_starts=a_starts)
+            include_self=include_self, wprefix=wprefix, a_starts=a_starts,
+            suppress_equal=suppress_equal)
         del ap_mp, bp_mp
         parts.append((ar, br, arp, brp, score, scomp))
         nseeds, total_seeds = nseeds + ns, total_seeds + ts
@@ -583,7 +597,8 @@ def _diag_filter_impl(apos, bpos, nhits: int, a_read_id, b_read_id,
                       hit_min: int, kmer: int, seed_cap: int,
                       upper_only: bool = False, include_self: bool = False,
                       self_only: bool = False, min_diag=None,
-                      max_diag=None, strand=None, wprefix=None):
+                      max_diag=None, strand=None, wprefix=None,
+                      suppress_equal: bool = False):
     """The double-bucketed banding over block positions: each hit is
     counted in its band (ar, br, strand, (apos - bpos + B cap) >>
     band_shift) and in the next one up, so a seed straddling a band edge
@@ -591,7 +606,8 @@ def _diag_filter_impl(apos, bpos, nhits: int, a_read_id, b_read_id,
     significant, novel k-mer coverage summed per band (weighted by
     wprefix for -b, threshold hit_min * 256), and the first hit of every
     band reaching the threshold kept as its seed.  strand: optional comp
-    bit per hit, carried in the key.  self_only (the datander search):
+    bit per hit, carried in the key.  suppress_equal: drop hits of a read
+    against itself.  self_only (the datander search):
     only a read against itself, keyed by one read field (br equals ar on
     every live row, so the order is the reference's (br, ar) key's).
     Returns (ar, br, apos, bpos, cov[, strand], nseeds, total_seeds),
@@ -606,6 +622,8 @@ def _diag_filter_impl(apos, bpos, nhits: int, a_read_id, b_read_id,
         live &= (ar <= br) if include_self else (ar < br)
     if self_only:
         live &= ar == br
+    if suppress_equal:
+        live &= ar != br
     if min_diag is not None:
         live &= diag >= min_diag
     if max_diag is not None:
@@ -692,7 +710,8 @@ def diagonal_filter_comp(apos, bpos, comp, nhits: int, a_read_id,
                          b_read_id, pos_bits: int, read_bits: int,
                          band_shift: int, hit_min: int, kmer: int,
                          seed_cap: int, upper_only: bool,
-                         include_self: bool = False, wprefix=None):
+                         include_self: bool = False, wprefix=None,
+                         suppress_equal: bool = False):
     """The legacy path's banding over a mixed-orientation hit stream:
     `comp`, the per-hit orientation bit, is carried in the band key, so
     forward and comp hits band apart in one sort; wprefix: -b.  Returns
@@ -700,7 +719,8 @@ def diagonal_filter_comp(apos, bpos, comp, nhits: int, a_read_id,
     return _diag_filter_impl(
         apos, bpos, nhits, a_read_id, b_read_id, pos_bits, read_bits,
         band_shift, hit_min, kmer, seed_cap, upper_only=upper_only,
-        include_self=include_self, strand=comp, wprefix=wprefix)
+        include_self=include_self, strand=comp, wprefix=wprefix,
+        suppress_equal=suppress_equal)
 
 
 def _split_strand_hits(ap2, bp2, b_rid, b_starts, k: int):
@@ -722,7 +742,8 @@ def _find_seeds_canonical_dev_legacy(blk_a, blk_b, cfg, arrays, mask_a,
                                      mask_b, upper_only: bool,
                                      hit_cap: int | None, seed_cap: int,
                                      a_idx, raw_hint: int | None,
-                                     self_pair: bool, bias_lut) -> dict:
+                                     self_pair: bool, bias_lut,
+                                     suppress_equal: bool = False) -> dict:
     """The canonical seeding of a pair whose payload exceeds 32 bits:
     block positions through the merge and the fill, the strand split,
     and the double-bucketed banding with the strand in its key.  Its
@@ -760,7 +781,7 @@ def _find_seeds_canonical_dev_legacy(blk_a, blk_b, cfg, arrays, mask_a,
             band_shift=cfg.band_shift, hit_min=cfg.hit_min, kmer=k,
             seed_cap=seed_cap, upper_only=bool(self_pair and upper_only),
             include_self=bool(getattr(cfg, "identity", False)),
-            wprefix=wprefix)
+            wprefix=wprefix, suppress_equal=suppress_equal)
     return {
         "path": "legacy", "aread": ar, "bread": br, "apos": sap,
         "bpos": sbp, "cov": cov, "comp": scomp, "nseeds": nseeds,
@@ -778,7 +799,8 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
                              dev_arrays=None, raw_hint: int | None = None,
                              self_pair: bool = False, bias_lut=None,
                              emit_hint: int | None = None, *,
-                             device=None):
+                             device=None, b_index=None, starts=None,
+                             suppress_equal: bool = False):
     """Device canonical seeding of one block pair: one index merge and
     one banding sort give the seeds of BOTH orientations (comp bit per
     seed; comp seeds carry bpos in per-read reverse-complement
@@ -793,6 +815,14 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
     tcap, overflow, raw_cap, compact_cap), and "path": "packed",
     "sliced" (with "slices": each slice's tuples, hits and buffer) or
     "legacy".
+
+    b_index: the B block's (tag, index) as canonical_index_dev returns
+    it, built elsewhere (the ring sweep's B index travels with its
+    block); with a_index it sets both payloads' widths, which need not
+    be the blocks' own.  starts: (a_starts, b_starts) int64 tensors on
+    the device (a received block's), else built from the blocks.
+    suppress_equal: drop hits of a read against itself (the ring's
+    rotation that pairs a block with itself, upper_only off).
 
     Paths: a pair whose payload exceeds 32 bits (or an a_index tagged
     "legacy") takes the legacy path; else the packed path, by slices of
@@ -814,14 +844,21 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
         a_rid = torch.as_tensor(blk_a.read_id, device=device)
         b_bases = torch.as_tensor(blk_b.bases, device=device)
         b_rid = torch.as_tensor(blk_b.read_id, device=device)
-    pa = packed_payload_host(blk_a)
-    pb = pa if (self_pair or blk_b is blk_a) else packed_payload_host(blk_b)
     tag, idx = a_index if a_index is not None else (None, None)
+    btag, bidx = b_index if b_index is not None else (None, None)
+    if tag is not None and btag is not None and "legacy" not in (tag,
+                                                                 btag):
+        pa = pb = True      # both indexes given: their tags hold the widths
+    else:
+        pa = packed_payload_host(blk_a)
+        pb = pa if (self_pair or blk_b is blk_a) else packed_payload_host(
+            blk_b)
     if tag == "legacy" or pa is None or pb is None:
         return _find_seeds_canonical_dev_legacy(
             blk_a, blk_b, cfg, (a_bases, a_rid, b_bases, b_rid), mask_a,
             mask_b, upper_only, hit_cap, seed_cap,
-            idx if tag == "legacy" else None, raw_hint, self_pair, bias_lut)
+            idx if tag == "legacy" else None, raw_hint, self_pair, bias_lut,
+            suppress_equal)
     dev = a_bases.device
     if idx is None:
         tag, idx = canonical_index_dev(a_bases, a_rid, blk_a, cfg.kmer,
@@ -834,21 +871,28 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
         b_rid_bits, b_rpos_bits = a_rid_bits, a_rpos_bits
         lo, cnt, cum, total = match_count_self(ac, k=cfg.kmer, max_count=t)
     else:
-        mpb, b_rid_bits, b_rpos_bits = pb
-        bc, bmp = build_index_canonical_packed(
-            b_bases, b_rid, _payload_tensor(mpb, dev), cfg.kmer, mask_b)
+        if bidx is not None:
+            (_, b_rid_bits, b_rpos_bits), (bc, bmp) = btag, bidx
+        else:
+            mpb, b_rid_bits, b_rpos_bits = pb
+            bc, bmp = build_index_canonical_packed(
+                b_bases, b_rid, _payload_tensor(mpb, dev), cfg.kmer, mask_b)
         lo, cnt, cum, total = match_count(ac, bc, k=cfg.kmer, max_count=t)
         del bc
     total = int(total)     # the tensor is a view that keeps cum alive
     cap = _hit_buffer(total, hit_cap, raw_hint)
-    a_starts = starts_tensor(blk_a, dev)
-    b_starts = a_starts if blk_b is blk_a else starts_tensor(blk_b, dev)
+    if starts is not None:
+        a_starts, b_starts = starts
+    else:
+        a_starts = starts_tensor(blk_a, dev)
+        b_starts = a_starts if blk_b is blk_a else starts_tensor(blk_b, dev)
     wprefix = (_bias_prefix_dev(a_bases, bias_lut) if bias_lut is not None
                else None)
     band_kw = dict(a_rid_bits=a_rid_bits, a_rpos_bits=a_rpos_bits,
                    b_rid_bits=b_rid_bits, b_rpos_bits=b_rpos_bits,
                    upper_only=bool(self_pair and upper_only),
-                   include_self=bool(getattr(cfg, "identity", False)))
+                   include_self=bool(getattr(cfg, "identity", False)),
+                   suppress_equal=suppress_equal)
     if cap > _SLICE_CAP:
         lo_cnt = [lo, cnt]
         del lo, cnt, cum
@@ -996,3 +1040,178 @@ def find_tandem_seeds(blk, cfg, min_period: int = 8,
             "nseeds": nseeds, "total_seeds": total_seeds, "nhits": nhits,
             "total_hits": total, "hit_buffer": hit_buffer,
             "seed_buffer": sc, "pieces": len(ranges)}
+
+
+# ---------------------------------------------------------------------------
+# The reference's plain seeding API: one orientation of B, forward k-mer
+# codes and block positions as payload (the pipeline seeds canonically;
+# these serve callers written against damar_tpu's plain functions).
+# ---------------------------------------------------------------------------
+
+def _pair_arrays(blk_a, blk_b, dev_arrays, device, who: str):
+    """(a_bases, a_rid, b_bases, b_rid) on the device: dev_arrays as
+    given, else the blocks uploaded to `device`; neither raises."""
+    if dev_arrays is not None:
+        return dev_arrays
+    if device is None:
+        raise TypeError(f"{who}: pass device= (or dev_arrays): there is no "
+                        f"default device")
+    return tuple(torch.as_tensor(x, device=device) for x in (
+        blk_a.bases, blk_a.read_id, blk_b.bases, blk_b.read_id))
+
+
+def _mask_tensor(mask, device):
+    if mask is None or torch.is_tensor(mask):
+        return mask
+    return torch.as_tensor(np.asarray(mask, dtype=bool), device=device)
+
+
+def match_hits(a_codes, a_pos, b_codes, b_pos, k: int, hit_cap: int,
+               max_count: int = 128):
+    """Merge two sorted forward k-mer indexes into (apos, bpos) hit pairs
+    in one buffer of hit_cap: match_count, then match_fill.  Returns
+    (apos, bpos, nhits, total)."""
+    lo, c, cum, _ = match_count(a_codes, b_codes, k=k, max_count=max_count)
+    return match_fill(a_pos, b_pos, lo, c, cum, hit_cap=hit_cap)
+
+
+def compact_hits(apos, bpos, nhits: int, a_rid, b_rid, out_cap: int,
+                 upper_only: bool, suppress_equal: bool = False,
+                 include_self: bool = False):
+    """Drop the pair-filtered hits (a read against itself under
+    suppress_equal, the lower triangle under upper_only; include_self
+    keeps a read against itself there) and compact the rest, in order,
+    into a buffer of out_cap (dead rows -1).  Returns (apos, bpos, n,
+    total); total > out_cap means the buffer truncated them."""
+    live = torch.arange(apos.shape[0], device=apos.device) < nhits
+    ar = a_rid.to(torch.int64)[apos.clamp(min=0)]
+    br = b_rid.to(torch.int64)[bpos.clamp(min=0)]
+    if upper_only:
+        live &= (ar <= br) if include_self else (ar < br)
+    if suppress_equal:
+        live &= ar != br
+    (oa, ob), n, total = compact_flagged(live, (apos, bpos), out_cap=out_cap)
+    return oa, ob, n, total
+
+
+def compact_hits_packed(ap_mp, bp_mp, nhits: int, a_rpos_bits: int,
+                        b_rpos_bits: int, out_cap: int, upper_only: bool,
+                        suppress_equal: bool = False,
+                        include_self: bool = False):
+    """compact_hits over packed hits: the read ordinals come from the
+    payloads; dead rows DEAD_MP.  Returns (ap_mp, bp_mp, n, total)."""
+    live = torch.arange(ap_mp.shape[0], device=ap_mp.device) < nhits
+    ar = ap_mp >> (1 + a_rpos_bits)
+    br = bp_mp >> (1 + b_rpos_bits)
+    if upper_only:
+        live &= (ar <= br) if include_self else (ar < br)
+    if suppress_equal:
+        live &= ar != br
+    (oa, ob), n, total = compact_flagged(live, (ap_mp, bp_mp),
+                                         out_cap=out_cap, fill=DEAD_MP)
+    return oa, ob, n, total
+
+
+def _plain_band(apos, bpos, nhits: int, a_rid, b_rid, blk_a, blk_b, cfg,
+                seed_cap: int, upper_only: bool):
+    """The double-bucketed banding of the plain API over block
+    positions (damar_tpu diagonal_filter with no strand)."""
+    return _diag_filter_impl(
+        apos, bpos, nhits, a_rid, b_rid,
+        pos_bits=_pos_bits(blk_a.cap, blk_b.cap),
+        read_bits=quantize_bits(max(blk_a.nreads, blk_b.nreads) + 1),
+        band_shift=cfg.band_shift, hit_min=cfg.hit_min, kmer=cfg.kmer,
+        seed_cap=seed_cap, upper_only=upper_only,
+        include_self=bool(getattr(cfg, "identity", False)))
+
+
+def find_seeds_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
+                   upper_only: bool = False, hit_cap: int = 1 << 20,
+                   seed_cap: int = 1 << 16, a_index=None, dev_arrays=None,
+                   raw_hint: int | None = None,
+                   compact_cap: int | None = None, self_pair: bool = False,
+                   *, device=None) -> dict:
+    """Seeding of one (A block, B orientation) with a hit buffer sized
+    without reading the count (damar_tpu find_seeds_dev): from raw_hint,
+    else from B's capacity (half of it for a self pair, whose merge
+    emits the upper triangle only; twice it otherwise), capped at
+    hit_cap.  A distinct pair's hits pass compact_hits first when
+    upper_only or compact_cap asks for it.  dev_arrays: (a_bases, a_rid,
+    b_bases, b_rid) on the device, else `device` (keyword-only, no
+    default) names where the blocks go.  a_index: (codes, pos) of
+    build_index.  Returns the seed tensors [seed_cap] (aread, bread,
+    apos, bpos, cov) and host ints nseeds, total_seeds, total_hits,
+    total_compact, overflow, raw_cap, compact_cap; overflow: a buffer
+    was too small (retry with raw_hint / compact_cap at the totals)."""
+    a_bases, a_rid, b_bases, b_rid = _pair_arrays(
+        blk_a, blk_b, dev_arrays, device, "find_seeds_dev")
+    dev = a_bases.device
+    k = cfg.kmer
+    ac, ap = a_index if a_index is not None else build_index(
+        a_bases, a_rid, k, _mask_tensor(mask_a, dev))
+    t = cfg.max_kmer_count or 128
+    nb = b_bases.shape[0]
+    if self_pair:
+        bp = ap
+        lo, cnt, cum, _ = match_count_self(ac, k=k, max_count=t)
+        want_raw = min(raw_hint or nb // 2, hit_cap)
+    else:
+        bc, bp = build_index(b_bases, b_rid, k, _mask_tensor(mask_b, dev))
+        lo, cnt, cum, _ = match_count(ac, bc, k=k, max_count=t)
+        want_raw = min(raw_hint or 2 * nb, hit_cap)
+    cap = _pow2_cap(want_raw, hit_cap)
+    apos, bpos, nhits, total_hits = match_fill(ap, bp, lo, cnt, cum,
+                                               hit_cap=cap)
+    include_self = bool(getattr(cfg, "identity", False))
+    if not self_pair and (upper_only or bool(compact_cap)):
+        ccap = _pow2_cap(min(compact_cap or max(nb // 4, 1 << 17), hit_cap),
+                         hit_cap)
+        apos, bpos, nhits, total_c = compact_hits(
+            apos, bpos, nhits, a_rid, b_rid, out_cap=ccap,
+            upper_only=upper_only, include_self=include_self)
+        overflow = total_hits > cap or total_c > ccap
+    else:
+        ccap, total_c = cap, total_hits
+        overflow = total_hits > cap
+    ar, br, sap, sbp, cov, nseeds, total_seeds = _plain_band(
+        apos, bpos, nhits, a_rid, b_rid, blk_a, blk_b, cfg, seed_cap,
+        upper_only=bool(self_pair and upper_only))
+    return {"aread": ar, "bread": br, "apos": sap, "bpos": sbp, "cov": cov,
+            "nseeds": nseeds, "total_seeds": total_seeds,
+            "total_hits": total_hits, "total_compact": total_c,
+            "overflow": bool(overflow or total_seeds > seed_cap),
+            "raw_cap": cap, "compact_cap": ccap}
+
+
+def find_seeds(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
+               upper_only: bool = False, hit_cap: int = 1 << 20,
+               seed_cap: int = 1 << 16, a_index=None, *, device) -> dict:
+    """Seeding of one (A block, B orientation; B already reverse
+    complemented for the comp pass) with the count read first (damar_tpu
+    find_seeds): the hit buffer is the smallest power of two from 2^17
+    holding the total, capped at hit_cap.  device (keyword-only, no
+    default): where the blocks go.  a_index: (codes, pos) of build_index
+    on that device.  Returns numpy seed arrays [seed_cap] (aread, bread,
+    apos, bpos, cov) and ints nseeds, total_seeds, nhits, total_hits."""
+    a_bases, a_rid, b_bases, b_rid = _pair_arrays(blk_a, blk_b, None, device,
+                                                  "find_seeds")
+    dev = a_bases.device
+    k = cfg.kmer
+    ac, ap = a_index if a_index is not None else build_index(
+        a_bases, a_rid, k, _mask_tensor(mask_a, dev))
+    bc, bp = build_index(b_bases, b_rid, k, _mask_tensor(mask_b, dev))
+    lo, cnt, cum, total = match_count(ac, bc, k=k,
+                                      max_count=cfg.max_kmer_count or 128)
+    cap = 1 << 17
+    while cap < int(total) and cap < hit_cap:
+        cap *= 2
+    apos, bpos, nhits, total_hits = match_fill(ap, bp, lo, cnt, cum,
+                                               hit_cap=min(cap, hit_cap))
+    ar, br, sap, sbp, cov, nseeds, total_seeds = _plain_band(
+        apos, bpos, nhits, a_rid, b_rid, blk_a, blk_b, cfg, seed_cap,
+        upper_only)
+    out = {key: x.cpu().numpy() for key, x in zip(
+        ("aread", "bread", "apos", "bpos", "cov"), (ar, br, sap, sbp, cov))}
+    out.update(nseeds=nseeds, total_seeds=total_seeds, nhits=nhits,
+               total_hits=total_hits)
+    return out

@@ -77,6 +77,31 @@ def radix_sort_packed(words, payloads, total_bits: int):
     return out[:nw], out[nw:]
 
 
+def radix_sort_multi(keys, payloads, bits_list: tuple):
+    """Stable lexicographic sort by several integer keys, MOST
+    significant first (bits_list[i]: the significant bits of keys[i], as
+    the reference takes them; a stable pass per key needs no widths).
+    Returns (keys_sorted tuple, payloads_sorted tuple)."""
+    order = None
+    for key in reversed(tuple(keys)):
+        k = key if order is None else key[order]
+        _, o = torch.sort(k, stable=True)
+        order = o if order is None else order[o]
+    nk = len(keys)
+    out = _permute(order, tuple(keys) + tuple(payloads))
+    return out[:nk], out[nk:]
+
+
+def merge_ranks(a_codes, b_codes, bits: int):
+    """For sorted a_codes and sorted b_codes: per b element, lo (the
+    count of a codes below it: searchsorted left) and count (the a codes
+    equal to it), in b's order.  Codes must be < 2**bits (bits <= 31, the
+    reference's merge-key limit)."""
+    assert bits <= 31, "merge key must fit 32 bits"
+    lo = torch.searchsorted(a_codes, b_codes, right=False)
+    return lo, torch.searchsorted(a_codes, b_codes, right=True) - lo
+
+
 def compact_flagged(live: torch.Tensor, arrays, out_cap: int,
                     fill: int = -1):
     """Compact elements where live is True into a prefix buffer of

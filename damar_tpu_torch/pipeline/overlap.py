@@ -273,6 +273,41 @@ def _assemble_extents_dev(va_u, vb_u, vd_u, ap_l, bp_l, ar_s, br_s,
     return torch.stack(rows)[:, good]
 
 
+def _run_phases(run, alim, blim, P1: int, max_rows: int) -> list:
+    """K1's two-phase form, when 0 < P1 < max_rows: every unit to row
+    P1, then the still-active units again from row 0 at full depth
+    (dead units' phase-1 results are final, so the outputs equal a
+    single full-depth pass; the others get alim = 0).  run(alim, blim,
+    **kw) launches the extension.  Returns its first three outputs."""
+    if not 0 < P1 < max_rows:
+        return list(run(alim, blim)[:3])
+    r1 = run(alim, blim, max_rows=P1, with_active=True)
+    act = r1[4]
+    r2 = run(torch.where(act, alim, 0), blim)
+    return [torch.where(act, x2, x1) for x1, x2 in zip(r1[:3], r2[:3])]
+
+
+def extend_bidir(a_words, b_words, aorg, borg, ap_l, bp_l, alen, blen,
+                 cfg: OverlapConfig):
+    """Bidirectional K1 extension of n seeds: the 2n units [fwd | rev],
+    one launch per phase (_run_phases).  a_words/b_words: packed words
+    of the pools the seeds lie in; aorg/borg: each seed's position in
+    them; ap_l/bp_l: its read-local positions; alen/blen: its reads'
+    lengths (int64 tensors [n]).  Returns [5, n] int64 rows abpos,
+    aepos, bbpos, bepos, diffs in read-local coordinates."""
+    n = aorg.shape[0]
+    rev = torch.arange(2 * n, device=aorg.device) >= n
+    run = partial(extend_wave_bp, a_words, b_words, torch.cat([aorg, aorg]),
+                  torch.cat([borg, borg]), dirs=rev, R=cfg.bp_chunk,
+                  max_rows=cfg.max_read_len, diff_cost=cfg.diff_cost,
+                  xdrop=cfg.xdrop, packed=True)
+    va, vb, vd = [x.to(torch.int64) for x in _run_phases(
+        run, torch.cat([alen - ap_l, ap_l]), torch.cat([blen - bp_l, bp_l]),
+        cfg.ext_phase1_rows, cfg.max_read_len)]
+    return torch.stack([ap_l - va[n:], ap_l + va[:n], bp_l - vb[n:],
+                        bp_l + vb[:n], vd[:n] + vd[n:]])
+
+
 def _extend_all_dev(blk_a: ReadBlock, blk_b: ReadBlock,
                     blk_b_rc: ReadBlock, sd: dict, cfg: OverlapConfig,
                     stats: dict, device) -> list[dict]:
@@ -299,12 +334,10 @@ def _extend_all_dev(blk_a: ReadBlock, blk_b: ReadBlock,
     stats["seeds"] += m_d
     a_words = _packed_words_of(blk_a, device)
     wide = _dp_kernel(cfg) == "wide"
-    P1 = cfg.ext_phase1_rows
-    # the wide extension reports no still-active units: one phase
-    two_phase = 0 < P1 < cfg.max_read_len and not wide
     res = []
     # bp: one K1 launch per phase and orientation, over every unit slot;
     # wide: one extension per orientation, a K3 chunk launch per R rows
+    # (it reports no still-active units: one phase)
     for u, blk in ((part0, blk_b), (part1, blk_b_rc)):
         kw = dict(dirs=u["u_rev"], max_rows=cfg.max_read_len,
                   diff_cost=cfg.diff_cost, xdrop=cfg.xdrop, packed=True)
@@ -315,17 +348,9 @@ def _extend_all_dev(blk_a: ReadBlock, blk_b: ReadBlock,
         run = partial(extend_wave_wide if wide else extend_wave_bp, a_words,
                       _packed_words_of(blk, device), u["u_ao"], u["u_bo"],
                       **kw)
-        if not two_phase:
-            res.append(run(u["u_alim"], u["u_blim"])[:3])
-            continue
-        r1 = run(u["u_alim"], u["u_blim"], max_rows=P1, with_active=True)
-        # phase 2: re-run the still-active units from row 0 at full
-        # depth (dead units' phase-1 results are final, so outputs equal
-        # a single full-depth pass); the others get alim = 0
-        act = r1[4]
-        r2 = run(torch.where(act, u["u_alim"], 0), u["u_blim"])
-        res.append([torch.where(act, x2, x1)
-                    for x1, x2 in zip(r1[:3], r2[:3])])
+        res.append(_run_phases(run, u["u_alim"], u["u_blim"],
+                               0 if wide else cfg.ext_phase1_rows,
+                               cfg.max_read_len))
     pack16 = (max(blk_a.nreads, blk_b.nreads) < 65536 and maxr < 65536)
     out = []
     for c, u in enumerate((part0, part1)):
@@ -356,43 +381,24 @@ def extend_seeds(blk_a: ReadBlock, blk_b: ReadBlock, seeds: dict,
     coordinates, rows with an empty span dropped.  The datander search's
     extension (damar_tpu extend_seeds): the nseeds seeds become 2 *
     nseeds units [fwd | rev], and K1 runs one launch per phase over all
-    of them (the two-phase form of _extend_all_dev).  device
+    of them (extend_bidir).  device
     (keyword-only, no default): where the blocks' words and the units
     live."""
     n = int(seeds["nseeds"])
     if n == 0:
         return empty_extents()
     device = torch.device(device)
-    dev_t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    dev_t = lambda x: torch.as_tensor(  # noqa: E731
+        x[:n], device=device).to(torch.int64)
     sa = _starts_dev(blk_a, device)
     sb = _starts_dev(blk_b, device)
-    ar = dev_t(seeds["aread"][:n]).to(torch.int64)
-    br = dev_t(seeds["bread"][:n]).to(torch.int64)
-    ap = dev_t(seeds["apos"][:n]).to(torch.int64)
-    bp = dev_t(seeds["bpos"][:n]).to(torch.int64)
-    a0, a1, b0, b1 = sa[ar], sa[ar + 1], sb[br], sb[br + 1]
-    alim = torch.cat([a1 - ap, ap - a0])
-    blim = torch.cat([b1 - bp, bp - b0])
-    rev = torch.cat([torch.zeros(n, dtype=torch.bool, device=device),
-                     torch.ones(n, dtype=torch.bool, device=device)])
-    run = partial(extend_wave_bp, _packed_words_of(blk_a, device),
-                  _packed_words_of(blk_b, device), torch.cat([ap, ap]),
-                  torch.cat([bp, bp]), dirs=rev, R=cfg.bp_chunk,
-                  max_rows=cfg.max_read_len, diff_cost=cfg.diff_cost,
-                  xdrop=cfg.xdrop, packed=True)
-    P1 = cfg.ext_phase1_rows
-    if 0 < P1 < cfg.max_read_len:
-        r1 = run(alim, blim, max_rows=P1, with_active=True)
-        # phase 2: the still-active units again from row 0, full depth
-        act = r1[4]
-        r2 = run(torch.where(act, alim, 0), blim)
-        va, vb, vd = [torch.where(act, x2, x1).to(torch.int64)
-                      for x1, x2 in zip(r1[:3], r2[:3])]
-    else:
-        va, vb, vd = [x.to(torch.int64) for x in run(alim, blim)[:3]]
-    ap_l, bp_l = ap - a0, bp - b0
-    d = torch.stack([ar, br, ap_l - va[n:], ap_l + va[:n], bp_l - vb[n:],
-                     bp_l + vb[:n], vd[:n] + vd[n:]])
+    ar, br, ap, bp = (dev_t(seeds[k]) for k in ("aread", "bread", "apos",
+                                                  "bpos"))
+    a0, b0 = sa[ar], sb[br]
+    e = extend_bidir(_packed_words_of(blk_a, device),
+                     _packed_words_of(blk_b, device), ap, bp, ap - a0,
+                     bp - b0, sa[ar + 1] - a0, sb[br + 1] - b0, cfg)
+    d = torch.cat([torch.stack([ar, br]), e])
     d = d[:, (d[3] > d[2]) & (d[5] > d[4])].cpu().numpy()
     out = {k: d[i].astype(np.int32) for i, k in enumerate(EXT_KEYS)}
     out["n"] = d.shape[1]
@@ -482,7 +488,7 @@ def _cap_segs(cfg: OverlapConfig) -> int:
 
 def _segs_bucket(expect: np.ndarray, cap_segs: int) -> np.ndarray:
     """The trace buffer's segment count for each extent: the smallest
-    8 * 2^k >= expect + 2, capped at cap_segs (what _trace_launch picks
+    8 * 2^k >= expect + 2, capped at cap_segs (what trace_launch picks
     for a batch, applied to one extent)."""
     need = np.minimum(expect.astype(np.int64) + 2, cap_segs)
     b = np.full(need.shape, 8, np.int64)
@@ -529,34 +535,38 @@ def _pack_trace(tr, expect, total_cap: int):
     return torch.where((j < total)[:, None], out, -1)
 
 
-def _trace_launch(pool_words, coords: dict, cfg: OverlapConfig,
-                  kernel=None):
+def trace_launch(pool_words, coords: dict, cfg: OverlapConfig,
+                 kernel=None, *, b_words=None, max_segs: int | None = None):
     """Launch the trace pass for a batch of extents.
 
-    coords: columnar int arrays ar, br, abp, aep, bbp, bep in the role
-    of THIS pass plus absolute starts ast/bst into the oriented pool.
-    Returns a pending handle for _trace_harvest_all.  kernel: trace
-    kernel override (the wide tier)."""
-    S = len(coords["ar"])
+    coords: columnar int arrays abp, aep, bbp, bep in the role of THIS
+    pass plus absolute starts ast/bst into the oriented pool.  Returns a
+    pending handle for trace_harvest_all.  kernel: trace kernel override
+    (the wide tier).  b_words: B's own pool (default: pool_words holds
+    both).  max_segs: the trace buffer's segments (default: the batch's
+    segment need, bucketed)."""
+    S = len(coords["abp"])
     if S == 0:
         return None
     abp, aep = coords["abp"], coords["aep"]
     bbp, bep = coords["bbp"], coords["bep"]
-    # trace buffer bucketed to the batch's real segment need (batches
-    # are length-sorted); power-of-two buckets
     expect = _n_segments_vec(abp, aep, cfg.tspace)
-    need = int(expect.max()) + 2
-    cap_segs = _cap_segs(cfg)
-    max_segs = 8
-    while max_segs < min(need, cap_segs):
-        max_segs *= 2
-    max_segs = min(max_segs, cap_segs)
+    if max_segs is None:
+        # trace buffer bucketed to the batch's real segment need
+        # (batches are length-sorted); power-of-two buckets
+        need = int(expect.max()) + 2
+        cap_segs = _cap_segs(cfg)
+        max_segs = 8
+        while max_segs < min(need, cap_segs):
+            max_segs *= 2
+        max_segs = min(max_segs, cap_segs)
     trace_fn = kernel if kernel is not None else trace_wave_bp
     dev = pool_words.device
     t = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int32),  # noqa
                                   device=dev)
     tr, nseg, dsum = trace_fn(
-        pool_words, pool_words, t(coords["ast"]), t(coords["bst"]),
+        pool_words, pool_words if b_words is None else b_words,
+        t(coords["ast"]), t(coords["bst"]),
         t(abp), t(bbp), t(aep - abp), t(bep - bbp), tspace=cfg.tspace,
         max_segs=max_segs, packed=True)
     total_cap = _round_slice(int(expect.sum()), 2048)
@@ -590,8 +600,8 @@ def _finish_from_host(packed, nseg, dsum, pend, cfg: OverlapConfig):
     return offs, ok, packed, np.asarray(dsum)
 
 
-def _trace_harvest_all(pends: list, cfg: OverlapConfig) -> list:
-    """Harvest many _trace_launch handles with two device->host
+def trace_harvest_all(pends: list, cfg: OverlapConfig) -> list:
+    """Harvest many trace_launch handles with two device->host
     transfers in all (packed traces, counts)."""
     live = [p for p in pends if p is not None]
     if not live:
@@ -645,6 +655,31 @@ def _trace_pool(blk_a, blk_b, blk_b_rc, blk_a_rc, emit_mirrors, device):
         blk_a.cache["trace_pool"] = ent
     return ent[2], offs[0], offs[1], offs[2], (offs[3] if emit_mirrors
                                                  else 0)
+
+
+# a record's header fields for las_columns
+REC_KEYS = ("abp", "aep", "bbp", "bep", "comp", "hdr_ar", "hdr_br", "dsum")
+
+
+def las_columns(rec: dict, seg_lens, trace_rows, tspace: int
+                ) -> LasColumns:
+    """The .las columns of n records: rec holds their REC_KEYS columns
+    (.las coordinates, comp nonzero for the complement orientation,
+    absolute read ids, trace diffs), seg_lens their trace segments,
+    whose rows lie one after another in trace_rows [sum(seg_lens), 2]."""
+    n = len(seg_lens)
+    h = np.zeros((n, 10), np.int32)
+    h[:, 0] = 2 * np.asarray(seg_lens)
+    h[:, 1] = rec["dsum"]
+    h[:, 2], h[:, 3] = rec["abp"], rec["bbp"]
+    h[:, 4], h[:, 5] = rec["aep"], rec["bep"]
+    h[:, 6] = np.where(np.asarray(rec["comp"]) != 0, OVL_COMP, 0)
+    h[:, 7], h[:, 8] = rec["hdr_ar"], rec["hdr_br"]
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(seg_lens, out=offs[1:])
+    payload, boffs = encode_trace_columns(trace_rows, offs,
+                                          tspace <= TRACE_XOVR)
+    return LasColumns(h, payload, boffs)
 
 
 def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
@@ -729,7 +764,6 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
     cols_b: list[LasColumns] = []
     uids_a: list[np.ndarray] = []
     uids_b: list[np.ndarray] = []
-    small = cfg.tspace <= TRACE_XOVR
     UKEYS = ("ar", "br", "abp", "aep", "bbp", "bep", "ast", "bst",
              "hdr_ar", "hdr_br", "comp", "mir", "uid")
 
@@ -750,27 +784,15 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
                 continue
             usink.append(chunk["uid"][ok_idx])
             seg_lens = seg_lens_all[ok_idx]
-            n = len(ok_idx)
-            h = np.zeros((n, 10), np.int32)
-            h[:, 0] = 2 * seg_lens
-            h[:, 1] = dsum[ok_idx]
-            h[:, 2] = chunk["abp"][ok_idx]
-            h[:, 3] = chunk["bbp"][ok_idx]
-            h[:, 4] = chunk["aep"][ok_idx]
-            h[:, 5] = chunk["bep"][ok_idx]
-            h[:, 6] = np.where(chunk["comp"][ok_idx] != 0, OVL_COMP, 0)
-            h[:, 7] = chunk["hdr_ar"][ok_idx]
-            h[:, 8] = chunk["hdr_br"][ok_idx]
             starts = offs_t[:-1][ok_idx].astype(np.int64)
-            new_off = np.zeros(n + 1, np.int64)
-            np.cumsum(seg_lens, out=new_off[1:])
-            total = int(new_off[-1])
-            rowpos = (np.arange(total, dtype=np.int64)
+            new_off = np.concatenate([[0], np.cumsum(seg_lens)])
+            rowpos = (np.arange(int(new_off[-1]), dtype=np.int64)
                       - np.repeat(new_off[:-1], seg_lens)
                       + np.repeat(starts, seg_lens))
-            payload, boffs = encode_trace_columns(packed[rowpos], new_off,
-                                                  small)
-            sink.append(LasColumns(h, payload, boffs))
+            rec = {k: chunk[k][ok_idx] for k in REC_KEYS[:-1]}
+            rec["dsum"] = dsum[ok_idx]
+            sink.append(las_columns(rec, seg_lens, packed[rowpos],
+                                    cfg.tspace))
 
     def launch_stream(units: dict, kernel=None):
         """Launch a round (the bp trace K2, or with `kernel` the wide
@@ -782,7 +804,7 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
         out = []
         for sel in plan:
             chunk = {k: units[k][sel] for k in UKEYS}
-            out.append((_trace_launch(pool, chunk, cfg, kernel=kernel),
+            out.append((trace_launch(pool, chunk, cfg, kernel=kernel),
                         chunk))
         return out
 
@@ -790,7 +812,7 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
         units = rows if isinstance(rows, dict) else {
             k: np.concatenate([p[k] for p in rows]) for k in rows[0]}
         pend = launch_stream(units, kernel=kernel)
-        res_all = _trace_harvest_all([p[0] for p in pend], cfg)
+        res_all = trace_harvest_all([p[0] for p in pend], cfg)
         for (_, chunk), res in zip(pend, res_all):
             if res is not None:
                 emit(chunk, res, retry_sink=sink)
@@ -840,47 +862,58 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
     return las_a, las_b
 
 
-def _retrace(h: np.ndarray, rows: np.ndarray, blk_a: ReadBlock,
-             blk_b: ReadBlock, a_local: dict, b_local: dict,
-             cfg: OverlapConfig, device) -> dict:
-    """The wide-band retrace of header rows `rows` (their reads in the
-    blocks): {row: (trace [nseg, 2] int32, diffs)}, or (None, 0) for a
-    row whose retrace fails the trace checks.  Every row runs on K3's
-    wide_trace_kernel over a pool [A fwd | B fwd | B rc] of the two
-    blocks: one launch per segment-count bucket, both orientations
-    together (rows are independent, so the plan does not change a row's
-    result)."""
+def wide_retry(blk_a: ReadBlock, blk_b: ReadBlock, units: dict,
+               cfg: OverlapConfig, device) -> dict:
+    """The wide-band trace of extents on K3's wide_trace_kernel, over a
+    pool [A fwd | B fwd | B rc] of the two blocks: one launch per
+    segment-count bucket, both orientations together (extents are
+    independent, so the plan does not change an extent's result).
+    units: columns ar, br (local read ordinals), comp (bool), abp, aep,
+    bbp, bep (.las coordinates) and row (the caller's key of each
+    extent).  Returns {row: (trace [nseg, 2] int32, diffs)}, or (None,
+    0) for an extent whose trace fails the trace checks."""
     out: dict[int, tuple] = {}
-    if not len(rows):
+    if not len(units["row"]):
         return out
     device = torch.device(device)
     pool, OA, OBF, OBC, _ = _trace_pool(
         blk_a, blk_b, _rc_cached(blk_b), None, emit_mirrors=False,
         device=device)
-    hr = h[rows]
-    ar = np.array([a_local[int(r)] for r in hr[:, H_AREAD]], np.int64)
-    br = np.array([b_local[int(r)] for r in hr[:, H_BREAD]], np.int64)
-    comp = (hr[:, H_FLAGS] & OVL_COMP) != 0
-    units = dict(
-        abp=hr[:, H_ABPOS].astype(np.int32),
-        aep=hr[:, H_AEPOS].astype(np.int32),
-        bbp=hr[:, H_BBPOS].astype(np.int32),
-        bep=hr[:, H_BEPOS].astype(np.int32),
-        ast=OA + blk_a.starts.astype(np.int64)[ar],
-        bst=np.where(comp, OBC, OBF) + blk_b.starts.astype(np.int64)[br],
-        ar=ar, row=rows)
-    plan = _trace_plan(units["aep"] - units["abp"],
-                       _n_segments_vec(units["abp"], units["aep"],
-                                       cfg.tspace), _cap_segs(cfg))
+    ar = np.asarray(units["ar"], np.int64)
+    br = np.asarray(units["br"], np.int64)
+    u = {k: np.asarray(units[k], np.int32)
+         for k in ("abp", "aep", "bbp", "bep")}
+    u.update(ast=OA + blk_a.starts.astype(np.int64)[ar],
+             bst=(np.where(units["comp"], OBC, OBF)
+                  + blk_b.starts.astype(np.int64)[br]),
+             ar=ar, row=np.asarray(units["row"]))
+    plan = _trace_plan(u["aep"] - u["abp"],
+                       _n_segments_vec(u["abp"], u["aep"], cfg.tspace),
+                       _cap_segs(cfg))
     wide = partial(trace_wave, W=cfg.band_width)
-    chunks = [{k: v[sel] for k, v in units.items()} for sel in plan]
-    res_all = _trace_harvest_all(
-        [_trace_launch(pool, ch, cfg, kernel=wide) for ch in chunks], cfg)
+    chunks = [{k: v[sel] for k, v in u.items()} for sel in plan]
+    res_all = trace_harvest_all(
+        [trace_launch(pool, ch, cfg, kernel=wide) for ch in chunks], cfg)
     for ch, (offs, okv, packed, dsum) in zip(chunks, res_all):
         for i, r in enumerate(ch["row"]):
             out[int(r)] = ((packed[offs[i]:offs[i + 1]], int(dsum[i]))
                            if okv[i] else (None, 0))
     return out
+
+
+def _retrace(h: np.ndarray, rows: np.ndarray, blk_a: ReadBlock,
+             blk_b: ReadBlock, a_local: dict, b_local: dict,
+             cfg: OverlapConfig, device) -> dict:
+    """The wide-band retrace of header rows `rows` (their reads in the
+    blocks) by wide_retry: {row: (trace [nseg, 2] int32, diffs)}, or
+    (None, 0) for a row whose retrace fails the trace checks."""
+    hr = h[rows]
+    return wide_retry(blk_a, blk_b, dict(
+        ar=[a_local[int(r)] for r in hr[:, H_AREAD]],
+        br=[b_local[int(r)] for r in hr[:, H_BREAD]],
+        comp=(hr[:, H_FLAGS] & OVL_COMP) != 0, abp=hr[:, H_ABPOS],
+        aep=hr[:, H_AEPOS], bbp=hr[:, H_BBPOS], bep=hr[:, H_BEPOS],
+        row=rows), cfg, device)
 
 
 def retrace_las(las: LasFile, blk_a: ReadBlock, blk_b: ReadBlock,
@@ -998,6 +1031,39 @@ def _sync(device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
+def grow_seeds(run_seeding, kw: dict, hit_cap: int | None,
+               seed_cap_max: int | None) -> tuple[dict, int]:
+    """Seeding run again while it overflowed a buffer that may still
+    grow: the raw hit buffer (up to hit_cap; sized from the exact total
+    already when hit_cap is None), the seed buffer (up to seed_cap_max,
+    without a limit when it is None) and the fill's emitting-tuple
+    partition.  run_seeding(kw) seeds with kw's buffers.  Returns (the
+    last run's seeds, the number of runs)."""
+    seeds, runs = run_seeding(kw), 1
+    while seeds["overflow"] and (
+            (seeds["total_hits"] > seeds["raw_cap"]
+             and hit_cap is not None and seeds["raw_cap"] < hit_cap)
+            or (seeds["total_seeds"] > kw["seed_cap"]
+                and (seed_cap_max is None
+                     or kw["seed_cap"] < seed_cap_max))
+            or (seeds["total_emit"] > seeds["tcap"]
+                and seeds["tcap"] < seeds["raw_cap"])):
+        if seeds["total_hits"] > seeds["raw_cap"]:
+            kw = dict(kw, raw_hint=seeds["total_hits"])
+        if seeds["total_seeds"] > kw["seed_cap"]:
+            sc = kw["seed_cap"]
+            want = (seeds["total_seeds"] if seed_cap_max is None
+                    else min(2 * seeds["total_seeds"], seed_cap_max))
+            while sc < want:
+                sc *= 2
+            kw = dict(kw, seed_cap=sc)
+        if seeds["total_emit"] > seeds["tcap"]:
+            kw = dict(kw, emit_hint=seeds["total_emit"])
+        seeds = run_seeding(kw)
+        runs += 1
+    return seeds, runs
+
+
 def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
                         cfg: OverlapConfig, self_block: bool,
                         mask_a=None, mask_b=None,
@@ -1053,35 +1119,9 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         kw["raw_hint"] = size_hints["raw"]
     if size_hints and size_hints.get("nnz"):
         kw["emit_hint"] = size_hints["nnz"]
-    seeds = run_seeding(kw)
-    stats["seed_runs"] = 1
-    # overflow retries grow whichever fixed buffer saturated: the raw
-    # hit buffer (up to hit_cap; sized from the exact total already
-    # when hit_cap is None), the seed buffer (up to 4x an explicit
-    # seed_cap, without a limit when it is None), and the fill's
-    # emitting-tuple partition
-    seed_cap_max = None if seed_cap is None else seed_cap * 4
-    while seeds["overflow"] and (
-            (seeds["total_hits"] > seeds["raw_cap"]
-             and hit_cap is not None and seeds["raw_cap"] < hit_cap)
-            or (seeds["total_seeds"] > kw["seed_cap"]
-                and (seed_cap_max is None
-                     or kw["seed_cap"] < seed_cap_max))
-            or (seeds["total_emit"] > seeds["tcap"]
-                and seeds["tcap"] < seeds["raw_cap"])):
-        if seeds["total_hits"] > seeds["raw_cap"]:
-            kw = dict(kw, raw_hint=seeds["total_hits"])
-        if seeds["total_seeds"] > kw["seed_cap"]:
-            sc = kw["seed_cap"]
-            want = (seeds["total_seeds"] if seed_cap_max is None
-                    else min(2 * seeds["total_seeds"], seed_cap_max))
-            while sc < want:
-                sc *= 2
-            kw = dict(kw, seed_cap=sc)
-        if seeds["total_emit"] > seeds["tcap"]:
-            kw = dict(kw, emit_hint=seeds["total_emit"])
-        seeds = run_seeding(kw)
-        stats["seed_runs"] += 1
+    # up to 4x an explicit seed_cap, without a limit when it is None
+    seeds, stats["seed_runs"] = grow_seeds(
+        run_seeding, kw, hit_cap, None if seed_cap is None else seed_cap * 4)
     if size_hints is not None:
         size_hints["raw"] = max(seeds["total_hits"],
                                 size_hints.get("raw", 0) // 2)

@@ -137,8 +137,11 @@ PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
 
 def test_port_imports_no_jax():
     """Run in a subprocess: this test process already imported jax.  Every
-    module is imported, and the command line prints its help (the whole
-    and a tool's) without importing jax or damar_tpu."""
+    module is imported, the command line prints its help (the whole and
+    a tool's) and the ring sweep runs one rank on two small blocks (its
+    lazy imports: torch.distributed, seeding, K1/K2's plain versions, the
+    pair path's trace and retry helpers), without importing jax or
+    damar_tpu."""
     code = (
         "import sys\n"
         "pre = set(sys.modules)\n"
@@ -160,6 +163,16 @@ def test_port_imports_no_jax():
         "        except SystemExit as e:\n"
         "            assert e.code == 0, e.code\n"
         "    assert 'damar_tpu_torch' in buf.getvalue()\n"
+        "import numpy as np, torch.distributed\n"
+        "from damar_tpu_torch.core.blocks import block_from_reads\n"
+        "from damar_tpu_torch.core.config import OverlapConfig\n"
+        "from damar_tpu_torch.parallel import distributed as dd\n"
+        "g = np.random.default_rng(3).integers(0, 4, 3000).astype(np.uint8)\n"
+        "blocks = [block_from_reads([g[o:o + 1500]], cap=1 << 12)\n"
+        "          for o in (0, 1000)]\n"
+        "las, _, _ = dd.distributed_overlap_las(\n"
+        "    blocks, OverlapConfig(min_len=300), device='cpu')\n"
+        "assert las[0].novl == 1 and las[1].novl == 1\n"
         "bad = sorted(k for k in set(sys.modules) - pre if k == 'jax' or "
         "k.startswith(('jax.', 'jaxlib', 'damar_tpu.')) or k == 'damar_tpu')\n"
         "print(bad)\n"
