@@ -68,17 +68,19 @@ Phases (any failure exits non-zero before the last line is printed):
      into a DB and split into 4 blocks of ~50 Mbp; run_overlap_plan
      over its 10 pairs on the card (pipelined pairs, size hints, the
      resident-block LRU, prefetch, the manifest, per-block merges), then
-     a plain loop of overlap_block_pair over the same blocks
-     (plain_sweep): every pair file and merged file must be byte-equal
-     between the two (--sweep-rounds N runs both forms N times in turns,
-     sweep, plain, plain, sweep, ..., every run byte-equal to the first,
-     and prints the walls' medians: host-clock walls on a shared host
-     spread by tens of percent, so only turns within one call compare
-     the forms); check_las clean and sorted on every merged file; every
-     record must have its mirror; a second run_overlap_plan must find
-     every job done.  Walls, Gbp-aligned/s, per-pair phase times and
-     peak memory are printed for both.  Then a quarter of the pairs again
-     as host 0 of 4 with DAMAR_RESIDENT_BLOCKS=1, so that blocks' device
+     a plain loop of overlap_block_pair over A-block 1's row of the same
+     blocks (plain_sweep over PLAIN_ROWS: the self pair, three distinct
+     pairs and merged file S.1.las): each of its files must be
+     byte-equal to the sweep's (--sweep-rounds N runs both forms, the
+     plain loop over every row, N times in turns, sweep, plain, plain,
+     sweep, ..., every run byte-equal to the first, and prints the
+     walls' medians: host-clock walls on a shared host spread by tens
+     of percent, so only turns within one call compare the forms);
+     check_las clean and sorted on every merged file; every record must
+     have its mirror; a second run_overlap_plan must find every job
+     done.  Walls, Gbp-aligned/s, per-pair phase times and peak memory
+     are printed for both.  Then two pairs again as host 0 of 5 with
+     DAMAR_RESIDENT_BLOCKS=1, so that blocks' device
      buffers are released while the pair before is still in its emit on
      the worker's stream: the same bytes.  Then one distinct pair (B !=
      A, mirrors on) with every launch kept: its files must be the plain
@@ -147,9 +149,9 @@ Phases (any failure exits non-zero before the last line is printed):
         every record with its mirror, a second run skipping every pair,
         the self pair's first PAIR_HELD launches equal to their plain
         versions;
-     c. that pair's seeding again unsliced (_SLICE_CAP raised
-        in-process): bit-identical to the plan's sliced
-        seeds, with its wall and peak memory;
+     c. (the unsliced rerun of that pair's seeding was cut from the
+        smoke's depth; tests/test_torch_seed_sliced.py holds sliced ==
+        unsliced, damar_tpu_torch/tools/seed_peaks.py times both);
      d, e. large-50Mbp cold, then warm with OverlapConfig(bias=True),
         then a self pair of its reads and 8 reads of 150 kbp (a payload
         of 33 bits: the legacy path); check_las clean, counts side by
@@ -187,8 +189,8 @@ Phases (any failure exits non-zero before the last line is printed):
         cap): distributed_overlap_las as a ring of one rank on the card,
         16 one-rotation sweeps; every shard check_las clean and sorted,
         for i < j shard i's records of B-block j byte-equal to
-        overlap_block_pair's A side with mirrors off and holding phase
-        8's pair file S.i.S.j.las (mirrors on, so a record whose mirror
+        overlap_block_pair's A side with mirrors off and holding the
+        sweep's pair file S.i.S.j.las (mirrors on, so a record whose mirror
         failed its trace is not there), the ring's first K1, K2 and K3 launches
         (capped at CAP items) equal to their plain versions; the wall of
         each program (overlap ring, dedupe, trace ring, checks with wide
@@ -199,10 +201,21 @@ Phases (any failure exits non-zero before the last line is printed):
         spread DB (3 x 3 super-sweeps): every shard byte-equal to a ring
         of one rank on the card and to the CPU run; two ranks asked for
         NCCL on the one card must refuse;
+     c. the ring's options (port fault 4), on two blocks of AT-rich reads
+        with tests/test_overlap.py's tandem-bearing reads in the first
+        (on a uniform genome -b's weights are all 256 and change no seed,
+        and reads without tandems have no self records): a ring of one
+        rank on the card with bias=True, and again with identity=True,
+        each byte-equal to the same ring on the CPU and unlike the ring
+        without the option; -b's part (0, 1) byte-equal to the pair
+        driver's A side (mirrors off, bias=True), -I's read-vs-itself
+        records those of the pair driver's self pair (identity=True);
+        dp_kernel="wide" raises before the ring starts;
 then print one JSON line of per-kernel results (`stage_launches`: each
 kernel's launches in phase 9, `assembly_launches` in phase 10b,
 `default_block_launches` per path of phase 11, `cli_launches` over
-phase 12's in-process tools, `ring_launches` in 13a; K4's row holds
+phase 12's in-process tools, `ring_launches` in 13a,
+`ring_option_launches` in 13c's ring with bias=True; K4's row holds
 phase 10b's launches and device time) and, last, the device line.
 """
 import argparse
@@ -243,7 +256,11 @@ GENOME, COVERAGE, MEAN_LEN, ERR, SEED = 2_500_000, 20.0, 6_000, 0.14, 2024
 HIT_CAP, SEED_CAP = 1 << 27, 1 << 21
 CAP = 16_384          # work items of a first launch held against plain
 # the sweep's pass with one resident block runs host 0's pairs of this many
-EVICT_HOSTS = 4
+EVICT_HOSTS = 5
+# the plain loop's A-block rows (one run, --sweep-rounds 1): row 1 is the
+# self pair, three distinct pairs and merged file S.1.las; --sweep-rounds
+# N > 1 runs every row, so the walls in turns compare whole sweeps
+PLAIN_ROWS = (1,)
 # the wide route's unit: the quick size of the reference's bench
 GENOME_QUICK, QUICK_HIT_CAP, QUICK_SEED_CAP = 500_000, 1 << 25, 1 << 19
 # the sweep's unit: the main unit's genome scaled 4x, split into 4 blocks
@@ -1008,14 +1025,19 @@ def write_pair(las_dir: str, i: int, j: int, la, lb) -> None:
         lasmod.write_las(out_a, both)
 
 
-def plain_sweep(db, cfg: OverlapConfig, las_dir: str, device) -> None:
+def plain_sweep(db, cfg: OverlapConfig, las_dir: str, device,
+                rows=None) -> None:
     """The sweep's files by a plain loop: every pair of the DB's blocks
-    through overlap_block_pair, then one merge per A block.  No
-    pipelining, hints, LRU, prefetch or manifest; a block's caches are
-    cleared when its row is done, as the sweep does."""
+    (of the A-block rows `rows`, None: all) through overlap_block_pair,
+    then one merge per A block of those rows.  No pipelining, hints,
+    LRU, prefetch or manifest; a block's caches are cleared when its row
+    is done, as the sweep does."""
     n = db.nblocks
+    rows = range(1, n + 1) if rows is None else rows
     blocks = {}
     for i, j in block_pair_matrix(n):
+        if i not in rows:
+            continue
         for b in (i, j):
             if b not in blocks:
                 blocks[b] = block_from_db(db, b)
@@ -1025,7 +1047,7 @@ def plain_sweep(db, cfg: OverlapConfig, las_dir: str, device) -> None:
         write_pair(las_dir, i, j, la, lb)
         if j == n:
             blocks[i].cache.clear()
-    for i in range(1, n + 1):
+    for i in rows:
         lasmod.merge_las([f"{las_dir}/S.{i}.S.{j}.las"
                           for j in range(1, n + 1)], f"{las_dir}/S.{i}.las")
 
@@ -1254,6 +1276,10 @@ def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
                                     verbose=False, hit_cap=HIT_CAP,
                                     seed_cap=SEED_CAP, device=dev, **kw)
 
+        # one run: the plain loop over PLAIN_ROWS; in turns: every row
+        rows = None if rounds > 1 else PLAIN_ROWS
+        n_plain = sum(1 for i, _ in pairs if rows is None or i in rows)
+
         def run(form, out):
             """One run of the sweep or of the plain loop into the new
             directory `out`: (wall, peak device memory, stats)."""
@@ -1262,7 +1288,7 @@ def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
             torch.cuda.synchronize()
             t0 = time.time()
             stats = (plan(out) if form == "sweep"
-                     else plain_sweep(db, cfg, out, dev))
+                     else plain_sweep(db, cfg, out, dev, rows))
             torch.cuda.synchronize()
             return (time.time() - t0, torch.cuda.max_memory_allocated(dev),
                     stats)
@@ -1288,11 +1314,13 @@ def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
                 if k in p))
         wall_plain, peak_plain, _ = run("plain", f"{w}/plain")
 
-        # ---- (a) every file byte-equal ----
+        # ---- (a) every file of the plain loop byte-equal ----
         names = sorted(f for f in os.listdir(f"{w}/plain")
                        if f.endswith(".las"))
-        bad = same_files(f"{w}/plain", f"{w}/sweep")
-        if len(names) != n * n + n or bad:
+        nrows = n if rows is None else len(rows)
+        want = nrows * (2 * n - nrows) + nrows
+        bad = same_files(f"{w}/plain", f"{w}/sweep", names)
+        if len(names) != want or bad:
             raise SystemExit(f"chip_smoke: sweep: {bad} differs from the "
                              f"plain loop's, or other files: {names}")
         # ---- more rounds of both forms, in turns ----
@@ -1330,7 +1358,8 @@ def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
         if again["pairs"] or again["skipped"] != len(pairs):
             raise SystemExit(f"chip_smoke: sweep: the second run recomputed "
                              f"pairs: {again}")
-        log(f"sweep: {len(names)} files byte-equal to the plain loop's; "
+        log(f"sweep: the plain loop's {len(names)} files ({n_plain} "
+            f"pairs) byte-equal to the sweep's; "
             f"merged files check_las clean and sorted, {novl} records, each "
             f"with its mirror (checks {t_check:.1f} s); second run skipped "
             f"{again['skipped']} pairs, ran {again['pairs']}")
@@ -1339,11 +1368,11 @@ def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
             f"(merged A spans {spans} / 2), {aligned / wall / 1e9:.4f} "
             f"Gbp-aligned/s/gpu, peak device memory {peak / 2**30:.2f} GiB "
             f"({peak} B) on {card}")
-        log(f"plain loop (overlap_block_pair, same blocks, same call): wall "
-            f"{wall_plain:.4f} s, {aligned / wall_plain / 1e9:.4f} "
-            f"Gbp-aligned/s/gpu, peak device memory "
-            f"{peak_plain / 2**30:.2f} GiB ({peak_plain} B); sweep / plain "
-            f"wall {wall / wall_plain:.3f} on {card}")
+        log(f"plain loop (overlap_block_pair, same blocks, same call, "
+            f"{n_plain} of {len(pairs)} pairs): wall {wall_plain:.4f} s, "
+            f"{wall_plain / n_plain:.4f} s a pair against the sweep's "
+            f"{wall / len(pairs):.4f}, peak device memory "
+            f"{peak_plain / 2**30:.2f} GiB ({peak_plain} B) on {card}")
         if rounds > 1:
             med = {f: float(np.median(v)) for f, v in walls.items()}
             log(f"in turns, {rounds} rounds: sweep walls "
@@ -1355,7 +1384,7 @@ def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
                 f"byte-equal; on {card}")
         log(f"launches in the sweep: {launches}")
 
-        # ---- (e) a quarter of the pairs again (host 0 of 4) with one
+        # ---- (e) two pairs again (host 0 of 5) with one
         # resident block: every B block's device buffers are released,
         # and every A block's when its row ends, while the pair before is
         # still in its emit on the worker's stream ----
@@ -1417,6 +1446,7 @@ def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
             f"plain loop's; launches {n_held} equal to their plain versions "
             f"({time.time() - t0:.1f} s)")
         out = dict(launches=launches, wall_s=wall, wall_plain_s=wall_plain,
+                   plain_pairs=n_plain,
                    aligned_bp=aligned, records=novl, peak_bytes=peak,
                    peak_plain_bytes=peak_plain, pairs=len(pairs),
                    total_bp=total_bp, released_one_resident=len(released),
@@ -1453,7 +1483,7 @@ def ring_full(dev, card: str, w: str, db) -> dict:
     one-rotation sweeps cover the 16 ordered pairs.  Every shard
     check_las clean and sorted; for i < j, shard i's records of B-block
     j byte-equal to overlap_block_pair's A side with mirrors off, and a
-    superset of phase 8's pair file S.i.S.j.las (mirrors on: a record
+    superset of phase 8's sweep pair file S.i.S.j.las (mirrors on: a record
     whose mirror fails its trace is dropped with it); the ring's first
     K1, K2 and K3 launches (capped at CAP items) equal to their plain
     versions."""
@@ -1508,7 +1538,7 @@ def ring_full(dev, card: str, w: str, db) -> dict:
             # phase 8's pair file (mirrors on) holds a subset: a record
             # whose mirror failed its trace goes with it
             ring_h = {tuple(x) for x in part.columns.headers.tolist()}
-            sweep = lasmod.read_las(f"{w}/plain/{name}")
+            sweep = lasmod.read_las(f"{w}/sweep/{name}")
             sweep_h = [tuple(x) for x in sweep.columns.headers.tolist()]
             if not all(x in ring_h for x in sweep_h):
                 raise SystemExit(f"chip_smoke: ring: phase 8's {name} holds "
@@ -1619,6 +1649,101 @@ def ring_ranks(dev, card: str) -> dict:
         return dict(ranks=RING_RANKS, backend=info["backend"],
                     staged=info["staged"], records=records,
                     rank0_timings_s=info["timings"], walls_s=walls)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def ring_option_blocks() -> list:
+    """Phase 13c's DB (tests/test_torch_ring_options.py's small_blocks):
+    two blocks of reads over an AT-rich 30 kbp genome (40% A, 10% C,
+    10% G, 40% T; 4x, mean 2.5 kb, 12% error), dealt alternately, the
+    first with the tandem-bearing reads of tests/test_overlap.py's
+    identity test (three 5%-error copies of a 900 bp unit, three
+    unrelated 2 kbp reads) appended."""
+    g = np.random.default_rng(91).choice(
+        np.arange(4, dtype=np.uint8), size=30_000, p=[0.4, 0.1, 0.1, 0.4])
+    s = sample_reads(g, coverage=4, mean_len=2500, err=0.12, seed=92,
+                     min_len=1000)
+    n = len(s.reads)
+    rng = np.random.default_rng(3)
+    unit = rng.integers(0, 4, 900).astype(np.uint8)
+    tandem = [np.concatenate([mutate(unit, 0.05, rng) for _ in range(3)])]
+    tandem += [rng.integers(0, 4, 2000).astype(np.uint8) for _ in range(3)]
+    return [block_from_reads([s.reads[i] for i in range(0, n, 2)] + tandem,
+                             ids=np.concatenate([np.arange(0, n, 2),
+                                                 n + np.arange(4)]),
+                             cap=1 << 17),
+            block_from_reads([s.reads[i] for i in range(1, n, 2)],
+                             ids=np.arange(1, n, 2), cap=1 << 17)]
+
+
+def records(las, which: str, ids=None) -> "lasmod.LasFile":
+    """The records of `las` whose B read is one of `ids` (which "b"), or
+    of a read against itself (which "self")."""
+    h = las.columns.headers
+    keep = np.isin(h[:, 8], ids) if which == "b" else h[:, 7] == h[:, 8]
+    return lasmod.LasFile(las.tspace,
+                          columns=las.columns.permute(np.nonzero(keep)[0]))
+
+
+def ring_options(dev, card: str) -> dict:
+    """Phase 13c (see the module docstring)."""
+    blocks = ring_option_blocks()
+    d = tempfile.mkdtemp(prefix="damar_smoke_ring_options_")
+    try:
+        t0 = time.time()
+        base = ring_shard_bytes(ring.distributed_overlap_las(
+            blocks, OverlapConfig(min_len=500), device=dev)[0], d, "base")
+        out = {}
+        for opt in ("bias", "identity"):
+            cfg = OverlapConfig(min_len=500, **{opt: True})
+            reset_launches()
+            las = ring.distributed_overlap_las(blocks, cfg, device=dev)[0]
+            launches = read_launches()
+            got = ring_shard_bytes(las, d, opt)
+            cpu = ring_shard_bytes(ring.distributed_overlap_las(
+                blocks, cfg, device="cpu")[0], d, f"{opt}.cpu")
+            if opt == "bias":
+                mine = records(las[0], "b", blocks[1].ids)
+                pair = ov.overlap_block_pair(blocks[0], blocks[1], cfg,
+                                             False, emit_mirrors=False,
+                                             device=dev)[0]
+            else:
+                mine = records(las[0], "self")
+                pair = records(ov.overlap_block_pair(
+                    blocks[0], blocks[0], cfg, True, emit_mirrors=False,
+                    device=dev)[0], "self")
+            same_pair = (ring_shard_bytes({0: mine}, d, f"{opt}.ring")
+                         == ring_shard_bytes({0: pair}, d, f"{opt}.pair"))
+            missing = [k for k in MAIN_PATH[:2] if launches[k] <= 0]
+            if got != cpu or got == base or not same_pair or not pair.novl \
+                    or missing:
+                raise SystemExit(
+                    f"chip_smoke: ring with {opt}=True: card == CPU "
+                    f"{got == cpu}, unlike the ring without it "
+                    f"{got != base}, the pair driver's records {same_pair} "
+                    f"({pair.novl}), kernels not launched {missing}")
+            out[opt] = dict(records=sum(x.novl for x in las.values()),
+                            compared=pair.novl, launches={
+                                k: v for k, v in launches.items() if v})
+        try:
+            ring.distributed_overlap_las(
+                blocks, OverlapConfig(min_len=500, dp_kernel="wide"),
+                device=dev)
+        except ValueError as e:
+            refused = "no wide route" in str(e)
+        else:
+            refused = False
+        if not refused:
+            raise SystemExit("chip_smoke: the ring ran dp_kernel='wide'")
+        out["wall_s"] = time.time() - t0
+        log(f"ring options (13c): bias=True and identity=True, one rank on "
+            f"the card == the CPU run, unlike the ring without them; -b's "
+            f"part (0, 1) ({out['bias']['compared']} records) the pair "
+            f"driver's A side, -I's {out['identity']['compared']} "
+            f"read-vs-itself records the self pair's; dp_kernel='wide' "
+            f"refused; {out} on {card}")
+        return out
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -2388,9 +2513,9 @@ LEGACY_LONG, LEGACY_LONG_BP, LEGACY_SEED = 8, 150_000, 2026
 # legacy and -b passes
 FIRST_HELD = {"bp_extend_kernel": 1, "bp_trace_kernel": 1,
               "wide_trace_kernel": 1}
-# the seeding's slice threshold set in-process: above every pair's hits
-# (phase 11c's unsliced run), below the small pairs' (11f's forced slices)
-NO_SLICING, FORCE_SLICING = 1 << 62, 1 << 10
+# the seeding's slice threshold set in-process below the small pairs'
+# hits (11f's forced slices)
+FORCE_SLICING = 1 << 10
 
 
 def hold_first(where: str, spy: Spy, keep: dict) -> dict:
@@ -2479,29 +2604,13 @@ def default_plan(w: str, db, dev, card: str) -> dict:
     self pair of block 1 must be seeded by slices; check_las clean and
     sorted on the merged files, every record with its mirror, a second
     run skipping every pair, the self pair's first PAIR_HELD launches
-    equal to their plain versions.  Returns the numbers, and the self
-    pair's last seeding (its block, arguments and result) for phase
-    11c."""
+    equal to their plain versions.  Returns the numbers."""
     ocfg, rlen = OverlapConfig(), db.reads["rlen"]
-    self_seeding = {}
-    real = ov.find_seeds_canonical_dev
-
-    def keep_self_seeding(blk_a, blk_b, cfg, **kw):
-        res = real(blk_a, blk_b, cfg, **kw)
-        if kw.get("self_pair") and blk_a.nbases == db_block_bp[0]:
-            self_seeding.update(blk=blk_a, kw=kw, res=res)
-        return res
-
-    db_block_bp = [int(rlen[db.block_reads(1)].sum())]
-    ov.find_seeds_canonical_dev = keep_self_seeding
-    try:
-        with Spy(keep=PAIR_HELD) as spy:
-            stats, wall, peak = timed(dev, lambda: run_overlap_plan(
-                f"{w}/D.db", ocfg, verbose=False, mask_names=["dust", "tan"],
-                device=dev))
-        launches = read_launches()
-    finally:
-        ov.find_seeds_canonical_dev = real
+    with Spy(keep=PAIR_HELD) as spy:
+        stats, wall, peak = timed(dev, lambda: run_overlap_plan(
+            f"{w}/D.db", ocfg, verbose=False, mask_names=["dust", "tan"],
+            device=dev))
+    launches = read_launches()
     pair_stats = stats.pop("pair_stats")
     if stats["pairs"] != 3 or stats["skipped"]:
         raise SystemExit(f"chip_smoke: default block plan ran {stats}")
@@ -2553,40 +2662,7 @@ def default_plan(w: str, db, dev, card: str) -> dict:
     return dict(wall_s=round(wall, 4), aligned_bp=aligned, records=novl,
                 peak_bytes=peak, launches=launches, pairs=[
                     {k: p[k] for k in ("pair",) + keys if k in p}
-                    for p in pair_stats], held=held), self_seeding
-
-
-def unsliced_again(dev, card: str, blk, kw: dict, res, what: str) -> dict:
-    """Phase 11c: a self pair's seeding again unsliced (_SLICE_CAP raised
-    in-process), with the arguments of the plan's sliced run: bit-
-    identical to `res`, the plan's (every seed column, nseeds,
-    total_seeds, total_hits); its wall and peak device memory.  (The
-    turns of sliced and unsliced runs that compared their walls are done:
-    PERF.md §6.)"""
-    from damar_tpu_torch.ops import seeding
-    old = seeding._SLICE_CAP
-    seeding._SLICE_CAP = NO_SLICING
-    try:
-        got, wall, peak = timed(dev, lambda: seeding.find_seeds_canonical_dev(
-            blk, blk, OverlapConfig(), **kw))
-    finally:
-        seeding._SLICE_CAP = old
-    if got["path"] != "packed":
-        raise SystemExit(f"chip_smoke: {what}: the unsliced run took the "
-                         f"{got['path']} path")
-    bad = [k for k in ("nseeds", "total_seeds", "total_hits")
-           if got[k] != res[k]]
-    bad += [k for k in ("aread", "bread", "apos", "bpos", "cov", "comp")
-            if not torch.equal(got[k], res[k])]
-    if bad:
-        raise SystemExit(f"chip_smoke: {what}: the unsliced seeds differ "
-                         f"in {bad}")
-    log(f"{what}, unsliced seeding: wall {wall:.4f} s, peak device memory "
-        f"{peak / 2**30:.2f} GiB ({peak} B); seeds bit-identical to the "
-        f"plan's sliced run ({res['nseeds']} of {res['total_seeds']}, "
-        f"total_hits {res['total_hits']}) on {card}")
-    return dict(unit=what, wall_s=round(wall, 4), peak_bytes=peak,
-                nseeds=res["nseeds"], total_hits=res["total_hits"])
+                    for p in pair_stats], held=held)
 
 
 def legacy_and_bias(dev, card: str) -> dict:
@@ -2709,14 +2785,8 @@ def default_block_phase(dev, card: str) -> dict:
         res = dict(blocks_bp=split, tracks=default_tracks(w, db, dev, card))
         log(f"phase 11a: {time.time() - t0:.1f} s")
         t0 = time.time()
-        res["plan"], seeding_kept = default_plan(w, db, dev, card)
+        res["plan"] = default_plan(w, db, dev, card)
         log(f"phase 11b: {time.time() - t0:.1f} s")
-        t0 = time.time()
-        res["unsliced"] = unsliced_again(
-            dev, card, seeding_kept["blk"], seeding_kept["kw"],
-            seeding_kept["res"], "default block 1 self pair")
-        del seeding_kept
-        log(f"phase 11c: {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(w, ignore_errors=True)
     t0 = time.time()
@@ -3238,6 +3308,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     ringed["ranks"] = ring_ranks(dev, card)
     log(f"phase 13b: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ringed["options"] = ring_options(dev, card)
+    log(f"phase 13c: {time.time() - t0:.1f} s")
     ring_launches = ringed["full"].pop("launches")
     for r in rows:
         r["sweep_launches"] = swept["launches"][r["name"]]
@@ -3281,6 +3354,9 @@ def main(argv=None) -> int:
         r["assembly_launches"] = launches_asm[r["name"]]
     row["ring_launches"] = ring_launches[K4]
     rows.append(row)
+    for r in rows:
+        r["ring_option_launches"] = ringed["options"]["bias"][
+            "launches"].get(r["name"], 0)
 
     # ---- a tiny assembly on the card and on the CPU path ----
     t0 = time.time()

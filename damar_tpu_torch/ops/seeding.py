@@ -40,8 +40,8 @@ The reference's plain API (one orientation, forward codes, block
 positions: match_hits, compact_hits, compact_hits_packed,
 find_seeds_dev, find_seeds) is here too, on no pipeline path.  The ring
 sweep seeds with find_seeds_canonical_dev, given both indexes
-(b_index: B's travels the ring) and suppress_equal on the rotation that
-pairs a block with itself.
+(b_index: B's travels the ring) and, on the rotation that pairs a
+block with itself, suppress_equal (or equal_upper under -I).
 
 Out-of-range gathers: JAX clamps gather indices; every index below is
 clipped where the reference clips, explicitly or implicitly.
@@ -303,7 +303,8 @@ def diagonal_filter_packed(ap_mp, bp_mp, nhits: int,
                            hit_min: int, kmer: int, seed_cap: int,
                            upper_only: bool, include_self: bool = False,
                            wprefix=None, a_starts=None,
-                           suppress_equal: bool = False):
+                           suppress_equal: bool = False,
+                           equal_upper: bool = False):
     """Single-bucket banding over packed hits: sort by the packed
     (arpos, bucket, strand, br, ar) key (arpos least significant), sum
     novel k-mer coverage per band, score each band as cov(band-1) +
@@ -312,6 +313,9 @@ def diagonal_filter_packed(ap_mp, bp_mp, nhits: int,
     positions (a_starts[ar] + arpos) and the threshold is hit_min * 256.
     suppress_equal: drop hits of a read against itself (the ring's
     rotation that pairs a block with itself, where upper_only is off).
+    equal_upper: keep a read against itself only where arpos < brpos,
+    the pairs a self merge gives (the same rotation under -I: no
+    trivial diagonal, no transposed copies).
     Returns (ar, br, arpos, brpos, score, comp, nseeds, total_seeds) in
     read-local coordinates (dead rows -1, score/comp 0)."""
     n = ap_mp.shape[0]
@@ -328,6 +332,8 @@ def diagonal_filter_packed(ap_mp, bp_mp, nhits: int,
         live &= (ar <= br) if include_self else (ar < br)
     if suppress_equal:
         live &= ar != br
+    if equal_upper:
+        live &= (ar != br) | (arp < brp)
     rpb = max(a_rpos_bits, b_rpos_bits)
     # fwd diagonal arpos - brpos (offset nonnegative); comp ANTI-diagonal
     # arpos + brpos: both constant along an overlap line
@@ -496,7 +502,8 @@ def _find_seeds_sliced(amp, bmp, lo_cnt: list, *, blk_a, blk_b, cfg,
                        b_rid_bits: int, b_rpos_bits: int,
                        upper_only: bool, include_self: bool,
                        a_starts, b_starts, wprefix=None,
-                       suppress_equal: bool = False) -> dict:
+                       suppress_equal: bool = False,
+                       equal_upper: bool = False) -> dict:
     """The fill and banding of find_seeds_canonical_dev by two slices of
     B reads; the same seeds in the same order.  lo_cnt: [lo, cnt], a
     list this function empties, so the table-scale tensors go as soon as
@@ -529,7 +536,7 @@ def _find_seeds_sliced(amp, bmp, lo_cnt: list, *, blk_a, blk_b, cfg,
             band_shift=cfg.band_shift, hit_min=cfg.hit_min, kmer=cfg.kmer,
             seed_cap=seed_cap, upper_only=upper_only,
             include_self=include_self, wprefix=wprefix, a_starts=a_starts,
-            suppress_equal=suppress_equal)
+            suppress_equal=suppress_equal, equal_upper=equal_upper)
         del ap_mp, bp_mp
         parts.append((ar, br, arp, brp, score, scomp))
         nseeds, total_seeds = nseeds + ns, total_seeds + ts
@@ -598,7 +605,7 @@ def _diag_filter_impl(apos, bpos, nhits: int, a_read_id, b_read_id,
                       upper_only: bool = False, include_self: bool = False,
                       self_only: bool = False, min_diag=None,
                       max_diag=None, strand=None, wprefix=None,
-                      suppress_equal: bool = False):
+                      suppress_equal: bool = False, keep=None):
     """The double-bucketed banding over block positions: each hit is
     counted in its band (ar, br, strand, (apos - bpos + B cap) >>
     band_shift) and in the next one up, so a seed straddling a band edge
@@ -607,7 +614,8 @@ def _diag_filter_impl(apos, bpos, nhits: int, a_read_id, b_read_id,
     wprefix for -b, threshold hit_min * 256), and the first hit of every
     band reaching the threshold kept as its seed.  strand: optional comp
     bit per hit, carried in the key.  suppress_equal: drop hits of a read
-    against itself.  self_only (the datander search):
+    against itself.  keep: an optional bool per hit, False drops it.
+    self_only (the datander search):
     only a read against itself, keyed by one read field (br equals ar on
     every live row, so the order is the reference's (br, ar) key's).
     Returns (ar, br, apos, bpos, cov[, strand], nseeds, total_seeds),
@@ -624,6 +632,8 @@ def _diag_filter_impl(apos, bpos, nhits: int, a_read_id, b_read_id,
         live &= ar == br
     if suppress_equal:
         live &= ar != br
+    if keep is not None:
+        live &= keep
     if min_diag is not None:
         live &= diag >= min_diag
     if max_diag is not None:
@@ -711,16 +721,17 @@ def diagonal_filter_comp(apos, bpos, comp, nhits: int, a_read_id,
                          band_shift: int, hit_min: int, kmer: int,
                          seed_cap: int, upper_only: bool,
                          include_self: bool = False, wprefix=None,
-                         suppress_equal: bool = False):
+                         suppress_equal: bool = False, keep=None):
     """The legacy path's banding over a mixed-orientation hit stream:
     `comp`, the per-hit orientation bit, is carried in the band key, so
-    forward and comp hits band apart in one sort; wprefix: -b.  Returns
-    (ar, br, apos, bpos, cov, comp, nseeds, total_seeds)."""
+    forward and comp hits band apart in one sort; wprefix: -b; keep: an
+    optional bool per hit, False drops it.  Returns (ar, br, apos, bpos,
+    cov, comp, nseeds, total_seeds)."""
     return _diag_filter_impl(
         apos, bpos, nhits, a_read_id, b_read_id, pos_bits, read_bits,
         band_shift, hit_min, kmer, seed_cap, upper_only=upper_only,
         include_self=include_self, strand=comp, wprefix=wprefix,
-        suppress_equal=suppress_equal)
+        suppress_equal=suppress_equal, keep=keep)
 
 
 def _split_strand_hits(ap2, bp2, b_rid, b_starts, k: int):
@@ -743,7 +754,8 @@ def _find_seeds_canonical_dev_legacy(blk_a, blk_b, cfg, arrays, mask_a,
                                      hit_cap: int | None, seed_cap: int,
                                      a_idx, raw_hint: int | None,
                                      self_pair: bool, bias_lut,
-                                     suppress_equal: bool = False) -> dict:
+                                     suppress_equal: bool = False,
+                                     equal_upper: bool = False) -> dict:
     """The canonical seeding of a pair whose payload exceeds 32 bits:
     block positions through the merge and the fill, the strand split,
     and the double-bucketed banding with the strand in its key.  Its
@@ -768,6 +780,12 @@ def _find_seeds_canonical_dev_legacy(blk_a, blk_b, cfg, arrays, mask_a,
     ap2v, bp2v, nhits, total_hits = match_fill(ap2, bp2, lo, cnt, cum,
                                                hit_cap=cap)
     del lo, cnt, cum
+    keep = None
+    if equal_upper:
+        # forward block positions, before a comp hit's B side is moved
+        fa, fb = (ap2v >> 1).clamp(min=0), (bp2v >> 1).clamp(min=0)
+        keep = (a_rid[fa] != b_rid[fb]) | (fa < fb)
+        del fa, fb
     apos, bpos, comp = _split_strand_hits(ap2v, bp2v, b_rid,
                                           starts_tensor(blk_b, dev), k)
     del ap2v, bp2v
@@ -781,7 +799,7 @@ def _find_seeds_canonical_dev_legacy(blk_a, blk_b, cfg, arrays, mask_a,
             band_shift=cfg.band_shift, hit_min=cfg.hit_min, kmer=k,
             seed_cap=seed_cap, upper_only=bool(self_pair and upper_only),
             include_self=bool(getattr(cfg, "identity", False)),
-            wprefix=wprefix, suppress_equal=suppress_equal)
+            wprefix=wprefix, suppress_equal=suppress_equal, keep=keep)
     return {
         "path": "legacy", "aread": ar, "bread": br, "apos": sap,
         "bpos": sbp, "cov": cov, "comp": scomp, "nseeds": nseeds,
@@ -800,7 +818,8 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
                              self_pair: bool = False, bias_lut=None,
                              emit_hint: int | None = None, *,
                              device=None, b_index=None, starts=None,
-                             suppress_equal: bool = False):
+                             suppress_equal: bool = False,
+                             equal_upper: bool = False):
     """Device canonical seeding of one block pair: one index merge and
     one banding sort give the seeds of BOTH orientations (comp bit per
     seed; comp seeds carry bpos in per-read reverse-complement
@@ -823,6 +842,10 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
     the device (a received block's), else built from the blocks.
     suppress_equal: drop hits of a read against itself (the ring's
     rotation that pairs a block with itself, upper_only off).
+    equal_upper: on that rotation under -I (cfg.identity), keep a read
+    against itself only at the hits a self merge gives (A position
+    below B position: no trivial diagonal, no transposed copies), so
+    the read's self records are the self pair's.
 
     Paths: a pair whose payload exceeds 32 bits (or an a_index tagged
     "legacy") takes the legacy path; else the packed path, by slices of
@@ -858,7 +881,7 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
             blk_a, blk_b, cfg, (a_bases, a_rid, b_bases, b_rid), mask_a,
             mask_b, upper_only, hit_cap, seed_cap,
             idx if tag == "legacy" else None, raw_hint, self_pair, bias_lut,
-            suppress_equal)
+            suppress_equal, equal_upper)
     dev = a_bases.device
     if idx is None:
         tag, idx = canonical_index_dev(a_bases, a_rid, blk_a, cfg.kmer,
@@ -892,7 +915,7 @@ def find_seeds_canonical_dev(blk_a, blk_b, cfg, mask_a=None, mask_b=None,
                    b_rid_bits=b_rid_bits, b_rpos_bits=b_rpos_bits,
                    upper_only=bool(self_pair and upper_only),
                    include_self=bool(getattr(cfg, "identity", False)),
-                   suppress_equal=suppress_equal)
+                   suppress_equal=suppress_equal, equal_upper=equal_upper)
     if cap > _SLICE_CAP:
         lo_cnt = [lo, cnt]
         del lo, cnt, cum

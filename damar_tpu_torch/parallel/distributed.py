@@ -27,13 +27,21 @@ sweeps of a super-row of A-blocks against a super-row of B-blocks
 row r, and at rotation j of sweep (ra, rb) it holds B-block
 rb*D + (d - j) % D.
 
+The ring honours the pair path's -b (cfg.bias: each resident A-block's
+bias_weight_lut, built once) and -I (cfg.identity: on the rotation that
+pairs a block with itself, a read against itself is kept at the hits a
+self merge gives, so its self records are the self pair's; without -I
+they are dropped).  It has no wide route: dp_kernel="wide" raises before
+anything is sent.
+
 Every decision that more than one rank takes (a grow-retry, which
 sweeps to run, a raise) comes from data all ranks hold after an
-all-reduce over a gloo group, so no rank waits on a send another rank
-skipped.  Under NCCL each rank needs a card of its own; under gloo,
-CUDA tensors go through host memory (ranks may share one card).  The
-module also keeps the job-matrix helpers of a multi-host sweep and the
-launcher contract that gives a host its index.
+all-reduce over a gloo group, or from the config every rank was given,
+so no rank waits on a send another rank skipped.  Under NCCL each rank
+needs a card of its own; under gloo, CUDA tensors go through host memory
+(ranks may share one card).  The module also keeps the job-matrix
+helpers of a multi-host sweep and the launcher contract that gives a
+host its index.
 """
 from __future__ import annotations
 
@@ -53,12 +61,13 @@ import torch.multiprocessing as mp
 
 from damar_tpu_torch.core.blocks import block_from_reads
 from damar_tpu_torch.formats.las import LasColumns, LasFile, write_las
-from damar_tpu_torch.ops.seeding import (build_index_canonical_packed,
+from damar_tpu_torch.ops.seeding import (bias_weight_lut,
+                                         build_index_canonical_packed,
                                          find_seeds_canonical_dev,
                                          packed_payload_base)
 from damar_tpu_torch.ops.words import pack_bases
 from damar_tpu_torch.pipeline.overlap import (SEED_CAP_START,
-                                              TRACE_BUF_BYTES,
+                                              TRACE_BUF_BYTES, _dp_kernel,
                                               dedupe_extents, extend_bidir,
                                               grow_seeds, las_columns,
                                               release_device_buffers,
@@ -347,17 +356,41 @@ class _Batch:
         raise NotImplementedError
 
 
+def _check_cfg(cfg) -> None:
+    """Raise for a config the ring cannot run, before anything is sent
+    (every rank holds the same cfg, so every rank raises)."""
+    if _dp_kernel(cfg) == "wide":
+        raise ValueError("the ring sweep has no wide route "
+                         "(dp_kernel='wide'): it extends and traces with "
+                         "the bit-parallel kernels only; run the block "
+                         "sweep (run_overlap_plan) for dp_kernel='wide'")
+
+
+def _bias_luts(blocks: list, cfg, own) -> dict:
+    """-b: {i: bias_weight_lut of A-block i} for this rank's A-blocks
+    (as the pair path builds it from blk_a), once each; {} without -b."""
+    if not cfg.bias:
+        return {}
+    return {i: bias_weight_lut(blocks[i].bases) for i in own}
+
+
 def _seed_pair(blk_a, blk_b, a, b, cfg, *, seed_cap: int | None,
-               hit_cap: int | None, widths: tuple, self_rot: bool) -> dict:
+               hit_cap: int | None, widths: tuple, self_rot: bool,
+               bias_lut=None) -> dict:
     """Canonical both-orientation seeding of one resident pair (the
     pair path's, with both indexes given: A's resident, B's received).
     seed_cap None: from the pair path's first seed buffer, grown to the
-    banding's total by one more run (grow_seeds)."""
+    banding's total by one more run (grow_seeds).  self_rot: the pair is
+    a block against itself, seeded in full (upper_only off), where a
+    read against itself is dropped, or under -I kept at the self merge's
+    hits.  bias_lut: -b, A's weights."""
     tag = ("packed",) + tuple(widths)
+    ident = bool(self_rot and cfg.identity)
     run = lambda kw: find_seeds_canonical_dev(  # noqa: E731
         blk_a, blk_b, cfg, upper_only=False, a_index=(tag, (a[3], a[4])),
         b_index=(tag, (b[3], b[4])), dev_arrays=(a[0], a[1], b[0], b[1]),
-        starts=(a[2], b[2]), suppress_equal=self_rot, **kw)
+        starts=(a[2], b[2]), suppress_equal=self_rot and not ident,
+        equal_upper=ident, bias_lut=bias_lut, **kw)
     # an explicit seed_cap is the reference's fixed buffer: no growth
     return grow_seeds(run, dict(
         hit_cap=hit_cap,
@@ -425,15 +458,16 @@ class _ExtendBatch(_Batch):
 def ring_overlap_step(ring: Ring, cfg, blocks: list, shards: dict,
                       ra: int, rb: int, batch: _ExtendBatch, *,
                       seed_cap: int | None, hit_cap: int | None,
-                      widths: tuple) -> None:
+                      widths: tuple, luts: dict) -> None:
     """One sweep of super-row ra of A-blocks against super-row rb of
     B-blocks on this rank: its A-block ra*D + rank stays, the B-blocks
     (bases, read ordinals, starts, codes, payloads) rotate D times, sent
     right and received from the left; the rotation that pairs a block
-    with itself (ra == rb, rotation 0) drops a read against itself, with
-    upper_only off.  No send follows the last rotation.  Each real
-    pair's seeds go to `batch` (padding blocks compute nothing but
-    still travel)."""
+    with itself (ra == rb, rotation 0) is seeded with upper_only off,
+    a read against itself dropped (kept at the self merge's hits under
+    -I).  No send follows the last rotation.  Each real pair's seeds go
+    to `batch` (padding blocks compute nothing but still travel).
+    luts: -b, {A-block: bias_weight_lut}."""
     D, d, n = ring.size, ring.rank, len(blocks)
     i = ra * D + d
     b = shards[rb * D + d]
@@ -442,7 +476,8 @@ def ring_overlap_step(ring: Ring, cfg, blocks: list, shards: dict,
         if i < n and bblk < n:
             sd = _seed_pair(blocks[i], blocks[bblk], shards[i], b, cfg,
                             seed_cap=seed_cap, hit_cap=hit_cap,
-                            widths=widths, self_rot=(ra == rb and j == 0))
+                            widths=widths, self_rot=(ra == rb and j == 0),
+                            bias_lut=luts.get(i))
             batch.add((i, bblk), sd, shards[i], b)
         if j < D - 1:
             b = _rotate(ring, b)
@@ -470,8 +505,11 @@ def distributed_overlap(blocks: list, cfg, ring: Ring | None = None,
     again bigger).  pairs: the (super-row, super-col) sweeps to run
     (None: all).  K1 runs once on each rank over the seeds of all its
     pairs (more often only when the pooled blocks pass
-    RING_POOL_BYTES).
+    RING_POOL_BYTES).  cfg.bias and cfg.identity are honoured as on the
+    pair path; dp_kernel="wide" raises ValueError (the ring has no wide
+    route) before anything is sent.
     timings: adds "overlap_ring" seconds."""
+    _check_cfg(cfg)
     ring = ring or make_mesh(device=device)
     n, D = len(blocks), ring.size
     k = -(-n // D)
@@ -479,6 +517,7 @@ def distributed_overlap(blocks: list, cfg, ring: Ring | None = None,
     shards = _shards if _shards is not None else shard_blocks(
         ring, blocks, cfg, widths)
     t0 = time.time()
+    luts = _bias_luts(blocks, cfg, range(ring.rank, n, D))
     exts: dict = {}
     counts = np.zeros((n, n, 3), np.int64)
     batch = _ExtendBatch(cfg, seed_cap)
@@ -487,7 +526,7 @@ def distributed_overlap(blocks: list, cfg, ring: Ring | None = None,
             if pairs is None or (ra, rb) in pairs:
                 ring_overlap_step(ring, cfg, blocks, shards, ra, rb, batch,
                                   seed_cap=seed_cap, hit_cap=hit_cap,
-                                  widths=widths)
+                                  widths=widths, luts=luts)
     batch.flush()
     for key, (e, c) in batch.out.items():
         exts[key] = e
@@ -756,7 +795,10 @@ def distributed_overlap_las(blocks: list, cfg, ring: Ring | None = None,
     per-rank .las shards, merged on the host by formats.las.merge_las),
     counts [n, n, 3] and total as distributed_overlap's.  timings adds
     seconds under overlap_ring, dedupe, trace_ring, retry_emit; stats
-    (when given) gets trace_retries and dropped_trace."""
+    (when given) gets trace_retries and dropped_trace.  cfg: as
+    distributed_overlap's (-b and -I honoured, "wide" refused before any
+    send)."""
+    _check_cfg(cfg)
     ring = ring or make_mesh(device=device)
     n, D = len(blocks), ring.size
     k = -(-n // D)

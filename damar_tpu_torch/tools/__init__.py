@@ -1,1 +1,3 @@
-"""Measuring tools of the port that no pipeline path needs."""
+"""The port's worked example and soak (do.py, soak.py: the twins of
+examples/do.py and scripts/soak.py), and measuring tools that no
+pipeline path needs."""

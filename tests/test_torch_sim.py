@@ -130,15 +130,16 @@ PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
     "pipeline.consensus", "pipeline.contigs", "pipeline.graph",
     "pipeline.masking", "pipeline.overlap", "pipeline.planner",
     "pipeline.poa", "pipeline.run", "pipeline.scrub", "pipeline.touring",
-    "tools.compare_wave_bp", "tools.profile_window", "tools.seed_peaks",
-    "utils.dust",
+    "tools.assembly_report", "tools.compare_wave_bp", "tools.do",
+    "tools.profile_window", "tools.seed_peaks", "tools.soak", "utils.dust",
     "utils.sim")]
 
 
 def test_port_imports_no_jax():
     """Run in a subprocess: this test process already imported jax.  Every
     module is imported, the command line prints its help (the whole and
-    a tool's) and the ring sweep runs one rank on two small blocks (its
+    a tool's), so do the worked example's and the soak's twins
+    (tools/do.py, tools/soak.py), and the ring sweep runs one rank on two small blocks (its
     lazy imports: torch.distributed, seeding, K1/K2's plain versions, the
     pair path's trace and retry helpers), without importing jax or
     damar_tpu."""
@@ -163,6 +164,16 @@ def test_port_imports_no_jax():
         "        except SystemExit as e:\n"
         "            assert e.code == 0, e.code\n"
         "    assert 'damar_tpu_torch' in buf.getvalue()\n"
+        "from damar_tpu_torch.tools import do, soak\n"
+        "for twin in (do, soak):\n"
+        "    sys.argv = [twin.__name__, '--help']\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        try:\n"
+        "            twin.main()\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, e.code\n"
+        "    assert '--cpu' in buf.getvalue()\n"
         "import numpy as np, torch.distributed\n"
         "from damar_tpu_torch.core.blocks import block_from_reads\n"
         "from damar_tpu_torch.core.config import OverlapConfig\n"
