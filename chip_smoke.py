@@ -157,9 +157,9 @@ Phases (any failure exits non-zero before the last line is printed):
         of 33 bits: the legacy path); check_las clean, counts side by
         side, the first K1, K2 and K3 launches of the -b and the legacy
         pass equal to their plain versions;
-     f. phase 7's small pairs with -b, with the sliced path forced and
-        with the legacy path forced, and a self pair of reads over an
-        AT-rich genome with -b: card == CPU path;
+     f. small pairs of phase 7's reads over a 30 kbp genome with the
+        sliced path forced and with the legacy path forced, and of reads
+        over an AT-rich genome with -b: card == CPU path;
  12. the command-line toolbox (damar_tpu_torch.cli.main in this process,
      DAMAR_PLATFORM unset: the card):
      a. after 10a, on a copy of phase 9's DB: dbstats, hpc-plan, dbdust,
@@ -211,12 +211,18 @@ Phases (any failure exits non-zero before the last line is printed):
         driver's A side (mirrors off, bias=True), -I's read-vs-itself
         records those of the pair driver's self pair (identity=True);
         dp_kernel="wide" raises before the ring starts;
+ 14. the bench twin: `python -m damar_tpu_torch.tools.bench --quick` as a
+     child process (BENCH_TIMEOUT), from this checkout; it must exit 0 and
+     its last line must parse with provenance "measured-on-gpu", the
+     card's name and count, config quick-10Mbp, a value above 0 and the
+     main path's kernels launched in its timed pass; its value is printed;
 then print one JSON line of per-kernel results (`stage_launches`: each
 kernel's launches in phase 9, `assembly_launches` in phase 10b,
 `default_block_launches` per path of phase 11, `cli_launches` over
 phase 12's in-process tools, `ring_launches` in 13a,
-`ring_option_launches` in 13c's ring with bias=True; K4's row holds
-phase 10b's launches and device time) and, last, the device line.
+`ring_option_launches` in 13c's ring with bias=True, `bench_launches` in
+a timed pass of phase 14's bench; K4's row holds phase 10b's launches
+and device time) and, last, the device line.
 """
 import argparse
 import contextlib
@@ -2516,6 +2522,9 @@ FIRST_HELD = {"bp_extend_kernel": 1, "bp_trace_kernel": 1,
 # the seeding's slice threshold set in-process below the small pairs'
 # hits (11f's forced slices)
 FORCE_SLICING = 1 << 10
+# phase 11f's genome: half of phase 7's, so that the CPU path's runs of
+# its three settings (6 pairs) fit the script's time limit
+FORCED_GENOME = 30_000
 
 
 def hold_first(where: str, spy: Spy, keep: dict) -> dict:
@@ -2727,15 +2736,19 @@ def legacy_and_bias(dev, card: str) -> dict:
 
 
 def forced_small_pairs(dev) -> dict:
-    """Phase 11f: phase 7's small pairs on the card == the CPU path with
-    -b, with the sliced path forced (_SLICE_CAP lowered) and with the
-    legacy path forced (packed_payload_host returning None), and -b on
-    a self pair of reads over an AT-rich genome (40% A, 10% C, 10% G, 40%
-    T), where the weights differ from one base to another."""
+    """Phase 11f: small pairs (phase 7's reads over a genome of
+    FORCED_GENOME) on the card == the CPU path with the sliced path
+    forced (_SLICE_CAP lowered) and with the legacy path forced
+    (packed_payload_host returning None), and with -b on reads over an
+    AT-rich genome (40% A, 10% C, 10% G, 40% T), where the weights differ
+    from one base to another (on a uniform genome they are all 256 and
+    change no seed)."""
     from damar_tpu_torch.ops import seeding
-    reads = small_reads()
-    out = {"bias": card_equals_cpu(dev, reads, OverlapConfig(bias=True),
-                                   what="-b ")}
+    reads = small_reads(make_genome(FORCED_GENOME, seed=11))
+    at = np.random.default_rng(77).choice(
+        4, FORCED_GENOME, p=[0.4, 0.1, 0.1, 0.4]).astype(np.uint8)
+    out = {"bias_at_rich": card_equals_cpu(
+        dev, small_reads(at), OverlapConfig(bias=True), what="-b AT-rich ")}
     old_cap, old_payload = seeding._SLICE_CAP, seeding.packed_payload_host
     try:
         seeding._SLICE_CAP = FORCE_SLICING
@@ -2748,11 +2761,6 @@ def forced_small_pairs(dev) -> dict:
     finally:
         seeding._SLICE_CAP, seeding.packed_payload_host = (old_cap,
                                                            old_payload)
-    at = np.random.default_rng(77).choice(
-        4, 60_000, p=[0.4, 0.1, 0.1, 0.4]).astype(np.uint8)
-    out["bias_at_rich"] = card_equals_cpu(
-        dev, small_reads(at), OverlapConfig(bias=True), pairs=["self"],
-        what="-b AT-rich ")
     return out
 
 
@@ -2801,6 +2809,56 @@ def default_block_phase(dev, card: str) -> dict:
                            legacy=res["passes"]["legacy"].pop("launches"))
     return res
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: the bench twin's quick config as a child process, run as a user
+# runs it; the kernel library is already built, so it is loaded, not built
+# ---------------------------------------------------------------------------
+BENCH_TIMEOUT = 300
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 14 (see the module docstring): the bench twin's value,
+    process wall and the launches of its timed pass."""
+    argv = [sys.executable, "-m", "damar_tpu_torch.tools.bench", "--quick"]
+    t0 = time.time()
+    try:
+        r = subprocess.run(argv, cwd=Path(__file__).resolve().parent,
+                           capture_output=True, text=True,
+                           timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"chip_smoke: phase 14: the bench ran past "
+                         f"{BENCH_TIMEOUT} s")
+    wall = time.time() - t0
+    for ln in r.stderr.splitlines():
+        if ln.startswith("# ["):
+            log(f"  {ln}")
+    if r.returncode:
+        raise SystemExit(f"chip_smoke: phase 14: the bench exited "
+                         f"{r.returncode}: {r.stderr[-2000:]}")
+    try:
+        rec = json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        raise SystemExit(f"chip_smoke: phase 14: the bench's last line is "
+                         f"no JSON object: {r.stdout[-400:]!r}")
+    dev = rec.get("device") or {}
+    launches = rec.get("launches") or {}
+    bad = [k for k, ok in (
+        ("provenance", rec.get("provenance") == "measured-on-gpu"),
+        ("device name", dev.get("name") == card.split(",")[0].strip()),
+        ("device count", dev.get("count") == torch.cuda.device_count()),
+        ("config", rec.get("config") == "quick-10Mbp"),
+        ("value", (rec.get("value") or 0) > 0),
+        ("launches", all(launches.get(k, 0) > 0 for k in MAIN_PATH)))
+        if not ok]
+    if bad:
+        raise SystemExit(f"chip_smoke: phase 14: the bench's line fails "
+                         f"{bad}: {rec}")
+    log(f"phase 14, the bench twin ({' '.join(argv[1:])}): "
+        f"{rec['value']:.4f} Gbp-aligned/s/gpu ({rec['config']}), process "
+        f"{wall:.1f} s, launches in a timed pass {launches} on {card}")
+    return dict(value=rec["value"], wall_s=round(wall, 1),
+                launches=launches, line=rec)
 
 
 # ---------------------------------------------------------------------------
@@ -3006,7 +3064,9 @@ def cli_fresh(base: str, card_w: str) -> dict:
     with DAMAR_PLATFORM unset it writes the in-process daligner's file;
     with no card visible (CUDA_VISIBLE_DEVICES empty) it exits non-zero
     and names the missing card, writing nothing; with DAMAR_PLATFORM=cpu
-    it writes the same bytes."""
+    it writes the same bytes.  The three processes run at once, each in
+    a copy of the directory, and each wall is taken from their common
+    start."""
     d = f"{base}/plan"
     os.makedirs(d)
     for f in ("RAW.db", ".RAW.idx", ".RAW.bps"):
@@ -3032,29 +3092,44 @@ def cli_fresh(base: str, card_w: str) -> dict:
     env0 = {k: v for k, v in os.environ.items()
             if k not in ("DAMAR_PLATFORM", "PYTHONPATH")}
     env0["PATH"] = f"{bindir}:{env0.get('PATH', '')}"
-    out = f"{d}/RAW.1.RAW.1.las"
+    runs = {}
+    for k, (label, extra) in enumerate((
+            ("card", {}), ("no card", {"CUDA_VISIBLE_DEVICES": ""}),
+            ("cpu", {"DAMAR_PLATFORM": "cpu"}))):
+        dk = f"{base}/fresh{k}"
+        os.makedirs(dk)
+        for f in ("RAW.db", ".RAW.idx", ".RAW.bps"):
+            shutil.copy(f"{d}/{f}", dk)
+        runs[label] = dk, extra
+    t0 = time.time()
+    procs = {label: subprocess.Popen(
+        ["bash", "-c", script], cwd=dk, env=dict(env0, **extra),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for label, (dk, extra) in runs.items()}
     res = {}
-    for label, extra in (("card", {}), ("no card", {
-            "CUDA_VISIBLE_DEVICES": ""}), ("cpu", {"DAMAR_PLATFORM": "cpu"})):
-        if os.path.exists(out):
-            os.remove(out)
-        t0 = time.time()
-        r = subprocess.run(["bash", "-c", script], cwd=d,
-                           env=dict(env0, **extra), capture_output=True,
-                           text=True, timeout=600)
-        res[label] = dict(rc=r.returncode, wall_s=round(time.time() - t0, 4))
-        if label == "no card":
-            if (r.returncode == 0 or "no CUDA device" not in r.stderr
-                    or os.path.exists(out)):
-                raise SystemExit(f"chip_smoke: phase 12d: with no card "
-                                 f"visible the line gave rc {r.returncode}"
-                                 f": {r.stderr[-400:]}")
-            res[label]["stderr"] = r.stderr.strip().splitlines()[-1]
-        elif r.returncode or not filecmp.cmp(out, f"{base}/inproc.las",
-                                             shallow=False):
-            raise SystemExit(f"chip_smoke: phase 12d: the rendered line "
-                             f"({label}) gave rc {r.returncode} or another "
-                             f"file: {r.stderr[-400:]}")
+    try:
+        for label, p in procs.items():
+            _, err = p.communicate(timeout=600)
+            res[label] = dict(rc=p.returncode,
+                              wall_s=round(time.time() - t0, 4))
+            out = f"{runs[label][0]}/RAW.1.RAW.1.las"
+            if label == "no card":
+                if (p.returncode == 0 or "no CUDA device" not in err
+                        or os.path.exists(out)):
+                    raise SystemExit(f"chip_smoke: phase 12d: with no card "
+                                     f"visible the line gave rc "
+                                     f"{p.returncode}: {err[-400:]}")
+                res[label]["stderr"] = err.strip().splitlines()[-1]
+            elif p.returncode or not filecmp.cmp(
+                    out, f"{base}/inproc.las", shallow=False):
+                raise SystemExit(f"chip_smoke: phase 12d: the rendered line "
+                                 f"({label}) gave rc {p.returncode} or "
+                                 f"another file: {err[-400:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     log(f"phase 12d, the rendered line `{script.splitlines()[-1]}` in a "
         f"fresh process: {res}; the card's and the CPU's file byte-equal "
         f"to the in-process daligner's")
@@ -3384,10 +3459,17 @@ def main(argv=None) -> int:
         r["default_block_launches"] = {k: v[r["name"]]
                                        for k, v in per_path.items()}
 
+    # ---- the bench twin, as a user runs it ----
+    t0 = time.time()
+    benched = bench_phase(card)
+    log(f"phase 14: {time.time() - t0:.1f} s")
+    for r in rows:
+        r["bench_launches"] = benched["launches"].get(r["name"], 0)
+
     print(json.dumps({"kernels": rows, "wide_retry_routes": routes,
                       "wide_route": wide, "sweep": swept, "stages": staged,
                       "assembly": asm, "default_block": default,
-                      "cli": cli_run, "ring": ringed,
+                      "cli": cli_run, "ring": ringed, "bench": benched,
                       "profiler_lost_launches": LOST_LAUNCHES}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

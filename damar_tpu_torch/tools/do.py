@@ -35,8 +35,8 @@ def main() -> int:
 
     from damar_tpu_torch.formats.fasta import read_fasta
     from damar_tpu_torch.pipeline.run import run_pipeline
-    from damar_tpu_torch.tools.assembly_report import (pick_device,
-                                                       print_extras, run)
+    from damar_tpu_torch.tools._card import pick_device
+    from damar_tpu_torch.tools.assembly_report import print_extras, run
     from damar_tpu_torch.utils.sim import (kmer_hit_rate, make_genome,
                                            sample_reads, write_sim_fasta)
 

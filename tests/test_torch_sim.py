@@ -130,7 +130,8 @@ PORT_MODULES = [f"damar_tpu_torch.{m}" for m in (
     "pipeline.consensus", "pipeline.contigs", "pipeline.graph",
     "pipeline.masking", "pipeline.overlap", "pipeline.planner",
     "pipeline.poa", "pipeline.run", "pipeline.scrub", "pipeline.touring",
-    "tools.assembly_report", "tools.compare_wave_bp", "tools.do",
+    "tools._card", "tools.assembly_report", "tools.bench",
+    "tools.compare_wave_bp", "tools.do", "tools.profile_overlap",
     "tools.profile_window", "tools.seed_peaks", "tools.soak", "utils.dust",
     "utils.sim")]
 
@@ -139,10 +140,11 @@ def test_port_imports_no_jax():
     """Run in a subprocess: this test process already imported jax.  Every
     module is imported, the command line prints its help (the whole and
     a tool's), so do the worked example's and the soak's twins
-    (tools/do.py, tools/soak.py), and the ring sweep runs one rank on two small blocks (its
-    lazy imports: torch.distributed, seeding, K1/K2's plain versions, the
-    pair path's trace and retry helpers), without importing jax or
-    damar_tpu."""
+    (tools/do.py, tools/soak.py) and the bench's and the pair profile's
+    (tools/bench.py, tools/profile_overlap.py), and the ring sweep runs
+    one rank on two small blocks (its lazy imports: torch.distributed,
+    seeding, K1/K2's plain versions, the pair path's trace and retry
+    helpers), without importing jax or damar_tpu."""
     code = (
         "import sys\n"
         "pre = set(sys.modules)\n"
@@ -171,6 +173,15 @@ def test_port_imports_no_jax():
         "    with contextlib.redirect_stdout(buf):\n"
         "        try:\n"
         "            twin.main()\n"
+        "        except SystemExit as e:\n"
+        "            assert e.code == 0, e.code\n"
+        "    assert '--cpu' in buf.getvalue()\n"
+        "from damar_tpu_torch.tools import bench, profile_overlap\n"
+        "for twin in (bench, profile_overlap):\n"
+        "    buf = io.StringIO()\n"
+        "    with contextlib.redirect_stdout(buf):\n"
+        "        try:\n"
+        "            twin.main(['--help'])\n"
         "        except SystemExit as e:\n"
         "            assert e.code == 0, e.code\n"
         "    assert '--cpu' in buf.getvalue()\n"
