@@ -23,14 +23,20 @@ Phases (any failure exits non-zero before the last line is printed):
      modes), on each of its classes alone (narrow pairs a warp each;
      wide pairs on 2 to 6 warps, codes in shared memory; the widest band
      with codes in global scratch) and on a polish window's mixed
-     launch;
+     launch; the reverse-complement twin's kernel (revcomp_kernel)
+     against revcomp_plain on random blocks (reads of 1-900 bases,
+     1-base reads among them, padding past nbases, a last read ending at
+     cap, an empty block), each aligned and at an odd offset;
   4. run the main path, overlap_block_pair on the large-50Mbp unit (2.5
      Mbp genome, 20x, mean 6 kb, 14% error, seeds 2024/2025, one block
      self-compared): a cold pass, which also builds what the block
      caches keep (uploads, the A-side index, the reverse-complement
-     block, the trace pool), then --passes warm passes that reuse them,
+     twin, the trace pool), then --passes warm passes that reuse them,
      each with every launch counter reset just before it; check_las
-     must be clean.  Then one more warm pass under torch.profiler, with
+     must be clean.  Before each warm pass the twin's device bases are
+     dropped, as a B block met anew has none (the pair cell's every
+     pair), so each pass makes them on the card: one revcomp_kernel
+     launch a pass, checked.  Then one more warm pass under torch.profiler, with
      a spy that keeps every kernel launch's arguments and outputs: the
      profiler gives each kernel's device time, the work the launches did
      gives its bound (see `bound`); --profile PATH writes that pass's
@@ -38,7 +44,10 @@ Phases (any failure exits non-zero before the last line is printed):
   5. hold each main-path kernel against its plain version on the
      arguments of its first main-path launch (capped at CAP work items),
      and time both: the kernel by its device time under the profiler,
-     the plain version with CUDA events; hold every other
+     the plain version with CUDA events; revcomp_kernel's launch of the
+     profiled pass byte for byte against revcomp_plain on the same device
+     inputs at the block's whole cap, and again alone, timed, its bound
+     its bytes (6 a real base, 2 a padding position); hold every other
      wide_trace_kernel launch of the pass (each segment bucket, capped
      at CAP extents) against trace_wave_plain too; K3's chunk form
      (dp_rows_kernel) the same way on its first launch of the wide route
@@ -85,7 +94,8 @@ Phases (any failure exits non-zero before the last line is printed):
      the worker's stream: the same bytes.  Then one distinct pair (B !=
      A, mirrors on) with every launch kept: its files must be the plain
      loop's, and its first launches of K1, K2 and K3 (PAIR_HELD; capped
-     at CAP items) must equal their plain versions, so the sweep is held
+     at CAP items) and both of its twins' revcomp_kernel launches
+     (whole) must equal their plain versions, so the sweep is held
      against the plain versions at its own shapes and not only against
      itself;
   9. the stages from a DB on disk (damar_tpu/pipeline/run.py's phases
@@ -246,7 +256,8 @@ from damar_tpu_torch.core.config import OverlapConfig
 from damar_tpu_torch.formats import dazzdb
 from damar_tpu_torch.formats import las as lasmod
 from damar_tpu_torch.formats.las import check_las
-from damar_tpu_torch.ops import _cuda, band_align, wave_bp, wave_wide
+from damar_tpu_torch.ops import (_cuda, band_align, revcomp, wave_bp,
+                                 wave_wide)
 from damar_tpu_torch.ops.words import pack_bases
 from damar_tpu_torch.parallel import distributed as ring
 from damar_tpu_torch.parallel.distributed import block_pair_matrix
@@ -321,6 +332,10 @@ LANES = {"wide_trace_kernel": 4, "dp_rows_kernel": 4}
 # the kernels each driven path must launch: the large-50Mbp pair and the
 # sweep run the bit-parallel route, the wide route K3 in both forms
 MAIN_PATH = ("bp_extend_kernel", "bp_trace_kernel", "wide_trace_kernel")
+# the reverse-complement twin's kernel: every overlap path makes its
+# twins with it on the card; the large-50Mbp pair and the sweep must
+# launch it, the pair's once a warm pass
+RC = "revcomp_kernel"
 # the launches of the sweep's spied pair that are held against the plain
 # versions: K1's forward extension in both phases and its
 # reverse-complement one in the first, K2's and K3's first two segment
@@ -329,7 +344,7 @@ MAIN_PATH = ("bp_extend_kernel", "bp_trace_kernel", "wide_trace_kernel")
 # in Python: a second-phase K1 launch took 36 s, the later buckets 12-34
 # s each, all 14 launches 211 s on an H100
 PAIR_HELD = {"bp_extend_kernel": 3, "bp_trace_kernel": 2,
-             "wide_trace_kernel": 2}
+             "wide_trace_kernel": 2, RC: 2}
 WIDE_PATH = ("dp_rows_kernel", "wide_trace_kernel")
 # the TPU kernels' ports (K1-K3); K4, the pile aligner, is the port of
 # damar_tpu's host C band_align and runs on the assembly's path (phase 10)
@@ -378,6 +393,10 @@ KERNELS = {
          "damar_tpu/native/damar_native.c:218 band_align, :322 "
          "band_align_batch (port of damar_tpu/native band_align, not a TPU "
          "kernel)"),
+    RC: (revcomp.revcomp_bases, revcomp, "revcomp_kernel",
+         revcomp.revcomp_plain, "damar_tpu_torch/csrc/revcomp.cu",
+         "none: damar_tpu makes this twin on the host "
+         "(damar_tpu/core/blocks.py:115 revcomp_block)"),
 }
 
 
@@ -386,8 +405,10 @@ def log(msg: str) -> None:
 
 
 def max_abs_err(a, b) -> int:
-    """Largest |kernel - plain| over all outputs; raises on a shape or
-    dtype mismatch."""
+    """Largest |kernel - plain| over all outputs (a tuple, or one
+    tensor); raises on a shape or dtype mismatch."""
+    if torch.is_tensor(a):
+        a, b = (a,), (b,)
     err = 0
     for x, y in zip(a, b):
         if x.shape != y.shape:
@@ -492,8 +513,39 @@ def fuzz_checks(dev) -> dict:
     e = max_abs_err(band_align.band_align_kernel(*args, True),
                     band_align.band_align_plain(*args, True))
     errs[K4] = max(errs[K4], e)
+
+    # the twin's kernel: reads of 1-900 bases (every 17th cut to 1),
+    # padded to their bucket; a last read ending at cap; an empty block;
+    # each also at an odd offset (the position-by-position form)
+    reads = [rng.integers(0, 4, int(k), dtype=np.uint8)
+             for k in rng.integers(1, 900, 3000)]
+    for i in range(0, len(reads), 17):
+        reads[i] = reads[i][:1]
+    at_cap = reads[:41]
+    for blk in (block_from_reads(reads),
+                block_from_reads(at_cap, cap=sum(len(r) for r in at_cap)),
+                block_from_reads([])):
+        for offset in (0, 1):
+            a = rc_args(blk, dev, offset)
+            e = max_abs_err(revcomp.revcomp_kernel(*a),
+                            revcomp.revcomp_plain(*a))
+            errs[RC] = max(errs[RC], e)
     torch.cuda.synchronize()
     return errs
+
+
+def rc_args(blk, dev, offset: int = 0) -> tuple:
+    """A block's bases, read ids and starts on dev as revcomp_bases takes
+    them, and its nbases; offset > 0 puts the bases and read ids that
+    many elements into their allocations (off 16-byte alignment)."""
+    out = []
+    for x in (blk.bases, blk.read_id):
+        t = torch.empty(len(x) + offset, dtype=torch.from_numpy(x).dtype,
+                        device=dev)[offset:]
+        t.copy_(torch.from_numpy(x))
+        out.append(t)
+    return (*out, torch.as_tensor(blk.starts.astype(np.int64), device=dev),
+            blk.nbases)
 
 
 def dp_rows_batch(rng, S: int, track: bool, recenter: bool,
@@ -580,7 +632,7 @@ def sass_ops_per_row(lib_path: Path) -> dict:
     out = {}
     for fn, (insns, labels) in funcs.items():
         kern = next((k for k in KERNELS if k in fn), None)
-        if kern is None:
+        if kern is None or kern == RC:      # no DP rows: bound by bytes
             continue
         if kern == K4:
             # the row loop: the template char and the thread's next cover
@@ -636,6 +688,12 @@ def work(name: str, a, kw, out, sass: dict,
     times 128 lanes.  K4: the DP cells, (m+1) x (2 band + 1) a pair."""
     nb = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
                         for t in ts if torch.is_tensor(t))
+    if name == RC:
+        # positions; bytes: a real base reads its read id (4) and its
+        # source base (1) and writes 1, a padding position reads and
+        # writes 1; the read starts once
+        cap, n = a[0].shape[0], int(a[3])
+        return cap, 0, 6 * n + 2 * (cap - n) + nb(a[2:3])
     if name == K4:
         # cells (m+1) x (2 band + 1) of each pair; bytes: the inputs, the
         # 2-bit codes and the ops each once
@@ -828,7 +886,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def capped(name: str, a, kw):
-    """The first CAP work items of a launch, as a launch of their own."""
+    """The first CAP work items of a launch, as a launch of their own
+    (the twin's kernel: the whole launch, a block's twin at its cap)."""
+    if name == RC:
+        return tuple(a), dict(kw)
     if name == K4:
         ta, ao, tb, bo, band = a[:5]
         P = min(CAP, band.shape[0])
@@ -946,7 +1007,8 @@ def hold_launches(where: str, calls: dict) -> None:
         for i, (a, k) in enumerate(launches):
             t0 = time.time()
             e = max_abs_err(getattr(mod, attr)(*a, **k), plain(*a, **k))
-            log(f"{name}, {where} launch {i}: {a[2].shape[0]} items, "
+            items = a[0].shape[0] if name == RC else a[2].shape[0]
+            log(f"{name}, {where} launch {i}: {items} items, "
                 f"max_abs_err {e} (plain {time.time() - t0:.1f} s)")
             if e:
                 raise SystemExit(f"chip_smoke: {name} disagrees with its "
@@ -1308,7 +1370,7 @@ def sweep_phase(dev, card: str, rounds: int, then=None) -> dict:
             raise SystemExit(f"chip_smoke: sweep ran {stats}")
         if any(p.get("seed_overflow") for p in pair_stats):
             raise SystemExit("chip_smoke: sweep: seeding buffers overflowed")
-        missing = [k for k in MAIN_PATH if launches[k] <= 0]
+        missing = [k for k in MAIN_PATH + (RC,) if launches[k] <= 0]
         if missing:
             raise SystemExit(f"chip_smoke: kernels not launched by the "
                              f"sweep: {missing}")
@@ -3136,6 +3198,52 @@ def cli_fresh(base: str, card_w: str) -> dict:
     return dict(fresh=res, launches=launches, inproc_wall_s=walls["daligner"])
 
 
+def drop_twin_bases(blk) -> None:
+    """Drop the device bases (and packed words) of blk's cached
+    reverse-complement twin, so that the next pass makes them again on
+    the card, as it does for a B block met anew."""
+    blk.cache["rc_block"].cache.pop("dev_arrs", None)
+
+
+def rc_row(spy: Spy, per: dict, launches: dict, errs: dict,
+           card: str) -> dict:
+    """revcomp_kernel's row of the kernels line: its one launch in the
+    profiled main-path pass, whose output and a launch again on the same
+    device inputs (the block's whole cap) are held byte for byte against
+    revcomp_plain, then timed alone (the kernel under the profiler, the
+    plain version with CUDA events) against its bytes' bound."""
+    _, mod, attr, plain, src, replaces = KERNELS[RC]
+    if len(spy.calls[RC]) != 1:
+        raise SystemExit(f"chip_smoke: {len(spy.calls[RC])} {RC} launches "
+                         f"in the profiled pass, wanted 1")
+    a, k, out = spy.calls[RC][0]
+    launch = getattr(mod, attr)
+    want = plain(*a, **k)
+    e = max(max_abs_err(out, want), max_abs_err(launch(*a, **k), want))
+    errs[RC] = max(errs[RC], e)
+    bms, by = bound(*work(RC, a, k, out, {})[1:])
+    ms = kernel_ms(RC, lambda: launch(*a, **k), 5)
+    plain_ms = cuda_ms(lambda: plain(*a, **k), 1)
+    cap, nbases = a[0].shape[0], int(a[3])
+    log(f"{RC}, main path, whole block (cap {cap}, nbases {nbases}, "
+        f"{a[2].shape[0] - 1} reads): kernel {ms:.4f} ms device time, bound "
+        f"{bms:.4f} ms ({by}), share of bound {bms / ms:.3f}, plain "
+        f"{plain_ms:.4f} ms, max_abs_err {e} on {card}")
+    p = per[RC]
+    return dict(
+        name=RC, route="cuda", source=src, replaces=replaces,
+        launches=launches[RC], max_abs_err=errs[RC], ms=round(ms, 4),
+        plain_ms=round(plain_ms, 4), bound_ms=round(bms, 4), bound_by=by,
+        library_ms=None,
+        library="none: no PyTorch call reverses each read of a block",
+        pass_ms=round(p["pass_ms"], 4),
+        pass_bound_ms=round(p["pass_bound_ms"], 4),
+        pass_bound_by=p["bound_by"],
+        bound_share=round(p["pass_bound_ms"] / p["pass_ms"], 4),
+        pass_rows=p["rows"], cap=cap, nbases=nbases,
+        note="rows are positions; the bound counts bytes only")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--passes", type=int, default=1,
@@ -3203,12 +3311,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.time() - t0
     aligned = int(las_a.a_spans().sum())
-    log(f"cold pass (adds the uploads, A-side index build, rc block and "
+    log(f"cold pass (adds the uploads, A-side index build, rc twin and "
         f"trace pool that warm passes reuse): wall {wall:.4f} s, "
         f"{aligned / wall / 1e9:.4f} Gbp-aligned/s, overlaps "
         f"{las_a.novl}; stats {json.dumps(stats, default=int)}")
     walls = []
     for i in range(args.passes):
+        drop_twin_bases(blk)
         reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
@@ -3240,6 +3349,9 @@ def main(argv=None) -> int:
         if missing:
             raise SystemExit(f"chip_smoke: kernels not launched by the "
                              f"main path: {missing}")
+        if launches[RC] != 1:
+            raise SystemExit(f"chip_smoke: {launches[RC]} {RC} launches "
+                             f"in a warm pass, wanted 1 (the twin's bases)")
     med = float(np.median(walls))
     log(f"warm passes: walls {[round(w, 4) for w in walls]} s, median "
         f"{med:.4f} s = {aligned / med / 1e9:.4f} Gbp-aligned/s on {card}")
@@ -3248,6 +3360,7 @@ def main(argv=None) -> int:
     # again if the profile lost launch records) ----
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(PROFILE_TRIES):
+        drop_twin_bases(blk)
         torch.cuda.synchronize()
         with Spy() as spy, profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3267,7 +3380,7 @@ def main(argv=None) -> int:
     report_profile(prof, wall, args.profile)
     if las_s.novl != las_a.novl:
         raise SystemExit("chip_smoke: the spied pass gave other records")
-    for name in MAIN_PATH:
+    for name in MAIN_PATH + (RC,):
         p = per[name]
         log(f"{name} in one warm pass: {p['launches']} launches, "
             f"{p['pass_ms']:.4f} ms device time, {p['rows']} rows, bound "
@@ -3351,6 +3464,7 @@ def main(argv=None) -> int:
                             "first launch there, capped; trace mode on fuzz "
                             "shapes under modes")
         rows.append(row)
+    rows.append(rc_row(spy, per, launches, errs, card))
     if any(r["max_abs_err"] for r in rows):
         raise SystemExit("chip_smoke: a kernel disagrees with its plain "
                          "version at main-path shapes")
@@ -3390,8 +3504,10 @@ def main(argv=None) -> int:
     for r in rows:
         r["sweep_launches"] = swept["launches"][r["name"]]
         r["ring_launches"] = ring_launches[r["name"]]
-    rows[-2]["wide_route_launches"] = wide["wide_trace_launches"]
-    rows[-1]["wide_route_launches"] = wide["launches"]
+    by_name = {r["name"]: r for r in rows}
+    by_name["wide_trace_kernel"]["wide_route_launches"] = wide[
+        "wide_trace_launches"]
+    by_name["dp_rows_kernel"]["wide_route_launches"] = wide["launches"]
     swept.pop("launches")
     if any(r["launches"] <= 0 for r in rows):
         raise SystemExit("chip_smoke: a kernel was launched on no path")

@@ -125,10 +125,10 @@ def cmd_dbrm(args):
 # --- overlap ----------------------------------------------------------------
 
 # the counts a pair's stats hold beyond damar_tpu's (the sized seeding
-# buffers' totals, runs and path): left out of what the tools print, so
-# their output is damar_tpu's
+# buffers' totals, runs and path; the reverse-complement twins made):
+# left out of what the tools print, so their output is damar_tpu's
 _PORT_STATS = ("seed_runs", "seed_overflow", "seed_path", "seed_slices",
-               "total_hits", "total_seeds")
+               "total_hits", "total_seeds", "rc_dev_built")
 
 
 def _ref_stats(stats: dict) -> dict:

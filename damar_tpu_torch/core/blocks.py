@@ -20,8 +20,10 @@ PAD_BASE = 4  # sentinel base code; matches nothing (valid codes are 0..3)
 
 @dataclass
 class ReadBlock:
-    """Host-side staging of one DB block."""
-    bases: np.ndarray     # uint8[cap]
+    """Host-side staging of one DB block.  bases is None for a
+    reverse-complement twin whose bases live on a card only
+    (pipeline.overlap._rc_cached)."""
+    bases: np.ndarray | None  # uint8[cap]
     starts: np.ndarray    # int32[nr+1]
     read_id: np.ndarray   # int32[cap]
     rlen: np.ndarray      # int32[nr]
@@ -37,7 +39,7 @@ class ReadBlock:
 
     @property
     def cap(self) -> int:
-        return len(self.bases)
+        return len(self.read_id)
 
 
 def round_up(n: int, m: int) -> int:

@@ -33,6 +33,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 # C entry point -> argument types (the return type is int everywhere)
 SIGNATURES = {
     "bp_extend_launch": [P, I, P, I, P, P, P, P, P, P, I, I, I, I, I,
@@ -47,6 +48,7 @@ SIGNATURES = {
                        I, I, I, I, I, I, I, P],
     "band_align_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I,
                           P, P, P, P, P],
+    "revcomp_launch": [P, P, P, P, L, L, P],
 }
 
 _lock = threading.Lock()

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import logging
+import weakref
 from functools import partial
 
 import numpy as np
@@ -46,6 +47,7 @@ from damar_tpu_torch.formats.las import (H_ABPOS, H_AEPOS, H_AREAD,
                                          LasColumns, LasFile, Overlap,
                                          encode_trace_columns)
 from damar_tpu_torch.formats.oflags import OVL_COMP, OVL_DISCARD
+from damar_tpu_torch.ops.revcomp import revcomp_bases
 from damar_tpu_torch.ops.seeding import (bias_weight_lut,
                                          canonical_index_dev,
                                          find_seeds_canonical_dev,
@@ -103,11 +105,43 @@ def _cached_a_index(blk: ReadBlock, kind: str, k: int, mask, build):
     return idx
 
 
-def _rc_cached(blk: ReadBlock) -> ReadBlock:
-    """Per-read reverse complement of a block, memoized on the block."""
+class _WeakRef:
+    """A weak reference to a block that pickles as the block itself, so
+    a block whose caches hold one can still be sent to a spawned process
+    (parallel.distributed.spawn_ranks); after loading, it refers weakly
+    to the loaded copy, or to nothing if that copy has no other owner."""
+
+    __slots__ = ("ref",)
+
+    def __init__(self, obj):
+        self.ref = None if obj is None else weakref.ref(obj)
+
+    def __call__(self):
+        return None if self.ref is None else self.ref()
+
+    def __reduce__(self):
+        return _WeakRef, (self(),)
+
+
+def _device_twin(blk: ReadBlock) -> ReadBlock:
+    """The reverse-complement twin of blk with no host bases: it shares
+    blk's starts, read_id, rlen, ids and nbases, and its device bases
+    are made from blk's device arrays at their first use (_dev_arr)."""
+    return ReadBlock(bases=None, starts=blk.starts, read_id=blk.read_id,
+                     rlen=blk.rlen, ids=blk.ids, nbases=blk.nbases,
+                     cache={"rc_of": _WeakRef(blk)})
+
+
+def _rc_cached(blk: ReadBlock, device) -> ReadBlock:
+    """Per-read reverse complement of a block, memoized on the block.  On
+    a CUDA device the twin is _device_twin's: its bases are made on the
+    card by revcomp_kernel at their first use, and made again there at
+    the first use after release_device_buffers.  On the CPU it is
+    revcomp_block's host twin."""
     rc = blk.cache.get("rc_block")
     if rc is None:
-        rc = revcomp_block(blk)
+        rc = (_device_twin(blk) if torch.device(device).type == "cuda"
+              else revcomp_block(blk))
         blk.cache["rc_block"] = rc
     return rc
 
@@ -117,9 +151,10 @@ def release_device_buffers(blk: ReadBlock) -> None:
     packed words and starts, the trace pool, the device A-side index,
     and the same on its cached rc twin).  The caches pin device memory
     for as long as the block object lives, so a sweep over many blocks
-    bounds how many stay resident.  Host-side caches (the rc twin's
-    bases) are kept.  A pair state that overlap_pair_device returned
-    holds its own references, so its emit is not affected."""
+    bounds how many stay resident.  The rc twin itself is kept: a host
+    twin with its bases, a device twin to be made again at its next use.
+    A pair state that overlap_pair_device returned holds its own
+    references, so its emit is not affected."""
     blk.cache.pop("dev_arrs", None)
     blk.cache.pop("trace_pool", None)
     ent = blk.cache.get("a_index")
@@ -131,22 +166,39 @@ def release_device_buffers(blk: ReadBlock) -> None:
         rc.cache.pop("trace_pool", None)
 
 
-def _dev_arr(blk: ReadBlock, name: str, device):
-    """Upload-once device residency for a block array (bases/read_id)."""
+def _dev_arr(blk: ReadBlock, name: str, device, stats: dict | None = None):
+    """Upload-once device residency for a block array (bases/read_id).
+    A device twin's bases are made from its forward block's device
+    arrays by revcomp_bases, the kernel waited for, in the span
+    rc.build: its time is added to stats' t_rc and counted
+    rc_dev_built."""
     d = blk.cache.setdefault("dev_arrs", {})
     arr = d.get((name, str(device)))
     if arr is None:
-        arr = torch.as_tensor(getattr(blk, name), device=device)
+        if name == "bases" and "rc_of" in blk.cache:
+            fwd = blk.cache["rc_of"]()
+            if fwd is None:
+                raise RuntimeError("a device twin outlived its forward "
+                                   "block")
+            with span("rc.build", stats, "t_rc"):
+                arr = revcomp_bases(_dev_arr(fwd, "bases", device),
+                                    _dev_arr(fwd, "read_id", device),
+                                    _starts_dev(fwd, device), blk.nbases)
+                _sync(device)
+            if stats is not None:
+                stats["rc_dev_built"] = stats.get("rc_dev_built", 0) + 1
+        else:
+            arr = torch.as_tensor(getattr(blk, name), device=device)
         d[(name, str(device))] = arr
     return arr
 
 
-def _packed_words_of(blk: ReadBlock, device):
+def _packed_words_of(blk: ReadBlock, device, stats: dict | None = None):
     """Block bases as device-resident packed words, memoized."""
     d = blk.cache.setdefault("dev_arrs", {})
     w = d.get(("words", str(device)))
     if w is None:
-        w = pack_bases(_dev_arr(blk, "bases", device))
+        w = pack_bases(_dev_arr(blk, "bases", device, stats))
         d[("words", str(device))] = w
     return w
 
@@ -347,8 +399,8 @@ def _extend_all_dev(blk_a: ReadBlock, blk_b: ReadBlock,
         else:
             kw["R"] = cfg.bp_chunk
         run = partial(extend_wave_wide if wide else extend_wave_bp, a_words,
-                      _packed_words_of(blk, device), u["u_ao"], u["u_bo"],
-                      **kw)
+                      _packed_words_of(blk, device, stats), u["u_ao"],
+                      u["u_bo"], **kw)
         res.append(_run_phases(run, u["u_alim"], u["u_blim"],
                                0 if wide else cfg.ext_phase1_rows,
                                cfg.max_read_len))
@@ -625,34 +677,32 @@ def trace_harvest_all(pends: list, cfg: OverlapConfig) -> list:
     return out
 
 
-def _trace_pool(blk_a, blk_b, blk_b_rc, blk_a_rc, emit_mirrors, device):
+def _trace_pool(blk_a, blk_b, blk_b_rc, blk_a_rc, emit_mirrors, device,
+                stats: dict | None = None):
     """The oriented base pool [A fwd | B fwd | B rc | A rc] (identity-
-    deduped for self pairs) as packed device words, memoized on blk_a.
-    Returns (words, offsets OA, OBF, OBC, OAR)."""
-    srcs = [blk_a.bases, blk_b.bases, blk_b_rc.bases]
-    if emit_mirrors:
-        srcs.append(blk_a_rc.bases)
+    deduped for self pairs: one block object, one part of its cap) as
+    packed device words, memoized on blk_a.  Returns (words, offsets OA,
+    OBF, OBC, OAR)."""
+    blks = [blk_a, blk_b, blk_b_rc] + ([blk_a_rc] if emit_mirrors else [])
     uniq: list = []
     uniq_off: dict[int, int] = {}
     offs: list[int] = []
-    for arr in srcs:
-        o = uniq_off.get(id(arr))
+    for b in blks:
+        o = uniq_off.get(id(b))
         if o is None:
-            o = sum(len(u) for u in uniq)
-            uniq_off[id(arr)] = o
-            uniq.append(arr)
+            o = sum(u.cap for u in uniq)
+            uniq_off[id(b)] = o
+            uniq.append(b)
         offs.append(o)
     pkey = (tuple(id(u) for u in uniq), str(device))
     ent = blk_a.cache.get("trace_pool")
-    if ent is None or ent[0] != pkey:
-        by_id = {}
-        for b in (blk_a, blk_b, blk_b_rc, blk_a_rc):
-            if b is not None:
-                by_id[id(b.bases)] = b
-        parts = [_dev_arr(by_id[id(u)], "bases", device) for u in uniq]
+    # weak refs keep the id() key honest without holding the blocks (and
+    # their device arrays) alive
+    if (ent is None or ent[0] != pkey
+            or any(r() is not u for r, u in zip(ent[1], uniq))):
+        parts = [_dev_arr(u, "bases", device, stats) for u in uniq]
         cat = torch.cat(parts) if len(parts) > 1 else parts[0]
-        # strong refs to the source arrays keep the id() key valid
-        ent = (pkey, list(uniq), pack_bases(cat))
+        ent = (pkey, [_WeakRef(u) for u in uniq], pack_bases(cat))
         blk_a.cache["trace_pool"] = ent
     return ent[2], offs[0], offs[1], offs[2], (offs[3] if emit_mirrors
                                                  else 0)
@@ -686,8 +736,7 @@ def las_columns(rec: dict, seg_lens, trace_rows, tspace: int
 def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
                      kept_parts: list[dict], cfg: OverlapConfig,
                      emit_mirrors: bool = True, stats: dict | None = None,
-                     blk_b_rc=None, blk_a_rc=None, *, pool, device
-                     ) -> tuple[LasFile, LasFile]:
+                     *, pool, device) -> tuple[LasFile, LasFile]:
     """Trace pass + columnar .las assembly for deduped extents.
 
     kept_parts: columnar extent dicts (aread/bread LOCAL ids, .las
@@ -735,10 +784,6 @@ def las_from_extents(blk_a: ReadBlock, blk_b: ReadBlock,
 
     with span("trace.setup", stats, "t_trace_setup"):
         stats.setdefault("dropped_trace", 0)
-        if blk_b_rc is None:
-            blk_b_rc = _rc_cached(blk_b)
-        if emit_mirrors and blk_a_rc is None:
-            blk_a_rc = blk_b_rc if blk_a is blk_b else _rc_cached(blk_a)
         sa = blk_a.starts.astype(np.int64)
         sb = blk_b.starts.astype(np.int64)
         alen = blk_a.rlen.astype(np.int32)
@@ -876,7 +921,7 @@ def wide_retry(blk_a: ReadBlock, blk_b: ReadBlock, units: dict,
         return out
     device = torch.device(device)
     pool, OA, OBF, OBC, _ = _trace_pool(
-        blk_a, blk_b, _rc_cached(blk_b), None, emit_mirrors=False,
+        blk_a, blk_b, _rc_cached(blk_b, device), None, emit_mirrors=False,
         device=device)
     ar = np.asarray(units["ar"], np.int64)
     br = np.asarray(units["br"], np.int64)
@@ -1083,10 +1128,11 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
     masks (numpy).  hit_cap/seed_cap and size_hints: see
     overlap_block_pair.  device: required, as in overlap_block_pair."""
     device = torch.device(device)
-    stats = dict(seeds=0, extents=0, kept=0, dropped_trace=0)
+    stats = dict(seeds=0, extents=0, kept=0, dropped_trace=0,
+                 rc_dev_built=0)
     with span("pair.rc_twin", stats, "t_rc"):
-        blk_b_rc = _rc_cached(blk_b)
-        blk_a_rc = _rc_cached(blk_a) if emit_mirrors else None
+        blk_b_rc = _rc_cached(blk_b, device)
+        blk_a_rc = _rc_cached(blk_a, device) if emit_mirrors else None
     with span("pair.seed", stats, "t_seed"):
         to_dev = lambda m: (None if m is None  # noqa: E731
                             else torch.as_tensor(np.asarray(m, dtype=bool),
@@ -1157,7 +1203,7 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         stats["kept"] = sum(p["n"] for p in kept_parts)
     with span("pair.pool", stats, "t_pool"):
         pool = _trace_pool(blk_a, blk_b, blk_b_rc, blk_a_rc, emit_mirrors,
-                           device)
+                           device, stats)
         _sync(device)
     # what this thread's stream queued (the pool's pack) must be done
     # before another stream reads it
@@ -1166,8 +1212,8 @@ def overlap_pair_device(blk_a: ReadBlock, blk_b: ReadBlock,
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(device))
     return dict(blk_a=blk_a, blk_b=blk_b, kept_parts=kept_parts, cfg=cfg,
-                emit_mirrors=emit_mirrors, stats=stats, blk_b_rc=blk_b_rc,
-                blk_a_rc=blk_a_rc, pool=pool, ready=ready, device=device)
+                emit_mirrors=emit_mirrors, stats=stats, pool=pool,
+                ready=ready, device=device)
 
 
 def overlap_pair_emit(state: dict, stream=None
@@ -1187,7 +1233,6 @@ def overlap_pair_emit(state: dict, stream=None
         las_a, las_b = las_from_extents(
             state["blk_a"], state["blk_b"], state["kept_parts"],
             state["cfg"], emit_mirrors=state["emit_mirrors"], stats=stats,
-            blk_b_rc=state["blk_b_rc"], blk_a_rc=state["blk_a_rc"],
             pool=state["pool"], device=state["device"])
     return las_a, las_b, stats
 

@@ -7,7 +7,7 @@ import subprocess
 
 import torch
 
-from damar_tpu_torch.ops import band_align, wave_bp, wave_wide
+from damar_tpu_torch.ops import band_align, revcomp, wave_bp, wave_wide
 
 # kernel name -> the wrapper whose `launches` counts its launches
 WRAPPERS = {
@@ -16,6 +16,7 @@ WRAPPERS = {
     "wide_trace_kernel": wave_wide.trace_wave,
     "dp_rows_kernel": wave_wide.dp_rows,
     "band_align_kernel": band_align.band_align,
+    "revcomp_kernel": revcomp.revcomp_bases,
 }
 
 

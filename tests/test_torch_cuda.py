@@ -457,3 +457,94 @@ def test_polish_on_card_matches_cpu(dev):
     out = [cs.polish_rounds(g.copy(), lay, seq_of, rounds=2, device=d)
            for d in (dev, "cpu")]
     assert np.array_equal(out[0], out[1])
+
+
+def _rc_block(rng, total: int, pad: int = 3):
+    """A block of random reads (gamma lengths, mean ~6 kbp, some of 1
+    base) of about `total` bases, padded past nbases."""
+    from damar_tpu_torch.core.blocks import block_from_reads
+    lens = np.maximum(1, rng.gamma(3.0, 2000.0, total // 6000 + 1)
+                      .astype(np.int64))
+    lens[::97] = 1
+    reads = [rng.integers(0, 4, int(k), dtype=np.uint8) for k in lens]
+    n = int(lens.sum())
+    return block_from_reads(reads, cap=n + pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["quads", "offset"])
+def test_revcomp_kernel_matches_revcomp_block(dev, aligned):
+    """revcomp_kernel's twin of a ~10 Mbp block == revcomp_block, one
+    launch, on arrays as uploaded (16-byte quads) and at an odd offset
+    (position by position)."""
+    from damar_tpu_torch.core.blocks import revcomp_block
+    from damar_tpu_torch.ops import revcomp
+    blk = _rc_block(np.random.default_rng(31), 10_000_000)
+    args = [torch.as_tensor(x) for x in (blk.bases, blk.read_id,
+                                         blk.starts.astype(np.int64))]
+    if aligned:
+        b, r, s = (x.to(dev) for x in args)
+    else:
+        b, r = (torch.empty(x.shape[0] + 1, dtype=x.dtype, device=dev)[1:]
+                for x in args[:2])
+        b.copy_(args[0])
+        r.copy_(args[1])
+        s = args[2].to(dev)
+    before = revcomp.revcomp_bases.launches
+    got = revcomp.revcomp_bases(b, r, s, blk.nbases)
+    torch.cuda.synchronize()
+    assert revcomp.revcomp_bases.launches == before + 1
+    assert np.array_equal(got.cpu().numpy(), revcomp_block(blk).bases)
+
+
+@pytest.mark.cuda
+def test_pair_stream_makes_twins_on_card(dev):
+    """A small distinct pair, three times through overlap_pairs_pipelined
+    with B's caches dropped before each job (A's kept), gives the CPU
+    path's .las bytes; B's twin is made on the card each pair (A's too in
+    the first), no host twin is built, and neither twin has host bases.
+    A self pair's pool holds its shared twin once."""
+    from damar_tpu_torch.core.blocks import block_from_reads
+    from damar_tpu_torch.core.config import OverlapConfig
+    from damar_tpu_torch.pipeline import overlap as ov
+    from damar_tpu_torch.utils.sim import make_genome, sample_reads
+    reads = sample_reads(make_genome(40_000, seed=3), coverage=10.0,
+                         mean_len=3000, err=0.14, seed=4).reads
+    h = len(reads) // 2
+
+    def blocks():
+        return (block_from_reads(reads[:h], ids=np.arange(h)),
+                block_from_reads(reads[h:], ids=np.arange(h, len(reads))))
+    cfg = OverlapConfig()
+    want = ov.overlap_block_pair(*blocks(), cfg, False, device="cpu")
+    a, b = blocks()
+    twins = []
+
+    def jobs():
+        for k in range(3):
+            ov.release_device_buffers(b)
+            if "rc_block" in b.cache:
+                twins.append(b.cache["rc_block"])
+            b.cache.clear()
+            yield dict(tag=k, blk_a=a, blk_b=b, self_block=False)
+    got = list(ov.overlap_pairs_pipelined(jobs(), cfg, device=dev))
+    twins.append(b.cache["rc_block"])
+    assert [g[0] for g in got] == [0, 1, 2]
+    for _, la, lb, st in got:
+        assert la.novl == want[0].novl > 0
+        for x, y in ((la, want[0]), (lb, want[1])):
+            for k in ("headers", "trace", "offsets"):
+                assert np.array_equal(getattr(x.columns, k),
+                                      getattr(y.columns, k))
+    assert [g[3]["rc_dev_built"] for g in got] == [2, 1, 1]
+    assert len(twins) == 3 and len({id(t) for t in twins}) == 3
+    assert a.cache["rc_block"].bases is None
+    assert all(t.bases is None for t in twins)
+    s, _ = blocks()
+    ov.overlap_block_pair(s, s, cfg, True, device=dev)
+    rc = s.cache["rc_block"]
+    assert rc.bases is None
+    words, oa, obf, obc, oar = s.cache["trace_pool"][2], *ov._trace_pool(
+        s, s, rc, rc, True, dev)[1:]
+    assert (oa, obf, obc, oar) == (0, 0, s.cap, s.cap)
+    assert words.shape[0] == 2 * s.cap // 16
